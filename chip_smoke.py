@@ -16,7 +16,9 @@ Phases, one JSON line each:
      train_steps, with each kernel's launch count over the timed steps.
   5. kernels: each kernel against its plain version at the full-width
      shapes of camera 0, with times, bounds and (segment reduce) the time of
-     one PyTorch call computing the same function.
+     one PyTorch call computing the same function; the backward is also
+     held to identical rows over two launches, and each compositing kernel
+     reports the (instance, pixel) slots its block shapes walk.
 Any failed check exits 1. The last line is the device summary. Without CUDA,
 or without the package beside it, the script exits 1 and prints no result.
 """
@@ -34,15 +36,18 @@ import time
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 # float32 operations per (instance, pixel) pair, counted from the kernels'
-# source (an FMA is two, exp one), by how far the pair goes: the alpha test
-# of csrc/raster_common.cuh stops at sigma < 0 after the offsets and the
-# quadratic form (12) or at alpha < 1/255 after exp, op * vis, the clamp and
-# the compare (16); a composited pair adds the forward's transmittance and
-# colour sums (11, rasterize_fwd.cu) or the backward's replayed weight and its
-# 9 gradient terms (46, rasterize_bwd.cu).
-OPS_CULLED = 12
-OPS_TESTED = 16
+# source (an FMA is two, exp one), by how far the pair goes through the
+# tests of csrc/raster_common.cuh: past the row's staged sigma cut (the
+# offsets, the quadratic form and a compare, 12), sigma < 0 (13), or
+# alpha < 1/255 after exp, op * vis, the clamp and the compare (17); a
+# composited pair adds the forward's transmittance and colour sums (11,
+# rasterize_fwd.cu) or the backward's replayed weight and its 9 gradient
+# terms (46, rasterize_bwd.cu).
+OPS_CUT = 12
+OPS_CULLED = 13
+OPS_TESTED = 17
 OPS_COMPOSITED = {"fwd": OPS_TESTED + 11, "bwd": OPS_TESTED + 46}
+KINDS = ("cut", "culled", "tested", "composited")
 
 KERNELS = {
     "fill": ("clm_gs_tpu_torch/csrc/fill.cu", "clm_gs_tpu/ops/fill_pallas.py:35"),
@@ -188,11 +193,13 @@ def _bound(bytes_, flops):
 
 def pair_counts(torch, table, gauss_ids, tile_offsets, last, w, h):
     """The (instance, pixel) pairs this run's data needs, by how far each
-    goes: {"fwd" | "bwd": {"culled", "tested", "composited"}}. The forward
-    tests a pixel's instances up to the one that ends it (or its tile's end);
-    the backward replays them up to the pixel's saved last composited
-    instance. Replays the forward's termination as rasterize_fwd_plain does;
-    the instance that ends a pixel counts as tested only."""
+    goes: {"fwd" | "bwd": {kind: count for kind in KINDS}}, and each
+    pixel's depth, the instances it walks: {"fwd" | "bwd": (tiles, 2048)}.
+    The forward tests a pixel's instances up to the one that ends it (or its
+    tile's end); the backward replays them up to the pixel's saved last
+    composited instance. Replays the forward's termination as
+    rasterize_fwd_plain does; the instance that ends a pixel counts as tested
+    only."""
     from clm_gs_tpu_torch.ops import rasterize as R
 
     px, py, inside = R._tile_pixels(w, h, table.device)
@@ -201,14 +208,16 @@ def pair_counts(torch, table, gauss_ids, tile_offsets, last, w, h):
     last_t = R._to_tiles(last[None].long(), fill=-1)[:, 0]
     T = torch.ones_like(px)
     done = ~inside
-    n = {d: dict.fromkeys(("culled", "tested", "composited"), 0)
-         for d in ("fwd", "bwd")}
+    n = {d: dict.fromkeys(KINDS, 0) for d in ("fwd", "bwd")}
+    depth = {"fwd": torch.zeros_like(last_t),
+             "bwd": torch.clamp_min(last_t - starts[:, None] + 1, 0)}
     for k0 in range(0, int(counts.max()), R.CHUNK):
         idx, valid, attrs, dx, dy, _, _, alpha, ok = R._chunk(
             table, gauss_ids, starts, counts, k0, px, py)
         ca, cb, cc = attrs[..., 2:3], attrs[..., 3:4], attrs[..., 4:5]
-        culled = valid[..., None] & (
-            0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy < 0)
+        sigma = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+        past = valid[..., None] & (sigma > torch.log(255 * attrs[..., 5:6]) + 1e-3)
+        culled = valid[..., None] & ~past & (sigma < 0)
         a = torch.where(ok, alpha, torch.zeros_like(alpha))
         om = 1.0 - a
         T_excl = T[:, None] * R._excl_cumprod(torch.cumprod(om, dim=1))
@@ -218,19 +227,44 @@ def pair_counts(torch, table, gauss_ids, tile_offsets, last, w, h):
         keep = live & ~viol & (a > 0)
         replay = valid[..., None] & (idx[..., None] <= last_t[:, None, :])
         for d, mask, comp in (("fwd", live, keep), ("bwd", replay, replay & ok)):
+            n[d]["cut"] += int((mask & past).sum())
             n[d]["culled"] += int((mask & culled).sum())
             n[d]["composited"] += int(comp.sum())
-            n[d]["tested"] += int((mask & ~culled & ~comp).sum())
+            n[d]["tested"] += int((mask & ~past & ~culled & ~comp).sum())
+        depth["fwd"] += live.sum(1)
         T = T * torch.where(keep, om, torch.ones_like(om)).prod(1)
         done = done | viol.any(1)
         if bool(done.all()):
             break
-    return n
+    return n, depth
+
+
+def walk(depth, gw, gh):
+    """(instance, pixel) slots walked when every gw x gh group of a tile's
+    pixels moves in lockstep to its deepest pixel's depth."""
+    from clm_gs_tpu_torch.ops.rasterize import TILE_H, TILE_W
+
+    g = depth.reshape(-1, TILE_H // gh, gh, TILE_W // gw, gw).amax((2, 4))
+    return int(g.sum()) * gw * gh
+
+
+def walks(depth):
+    """Slots the compositing kernels' block shapes walk: one block that owns
+    a whole 64x32 tile moves it to its deepest pixel; a warp of a 16x16
+    sub-tile block covers a 16x2 patch. `serial` is the sum over tiles of
+    the deepest pixel's depth: the instances the tile's slowest warp walks
+    one after another."""
+    out = {}
+    for d, dep in depth.items():
+        out[d] = {"needed": int(dep.sum()), "warp_16x2": walk(dep, 16, 2),
+                  "block_16x16": walk(dep, 16, 16), "tile_64x32": walk(dep, 64, 32),
+                  "serial": int(dep.amax(1).sum())}
+    return out
 
 
 def _pair_ops(pairs, d):
     p = pairs[d]
-    return (p["culled"] * OPS_CULLED + p["tested"] * OPS_TESTED
+    return (p["cut"] * OPS_CUT + p["culled"] * OPS_CULLED + p["tested"] * OPS_TESTED
             + p["composited"] * OPS_COMPOSITED[d])
 
 
@@ -297,15 +331,16 @@ def kernel_checks(torch, n=None, w=None, h=None, reps=10, scene=None):
     torch.cuda.synchronize()
     check(err_img <= TOL["image"] and err_alpha <= TOL["image"],
           f"rasterize_fwd: image err {err_img}, alpha err {err_alpha}")
-    pairs = pair_counts(torch, table, isect.gauss_ids, isect.tile_offsets, kf[3],
-                        w, h)
+    pairs, depth = pair_counts(torch, table, isect.gauss_ids, isect.tile_offsets,
+                               kf[3], w, h)
+    walked = walks(depth)
     m = isect.n_isects
     fwd_bytes = table.numel() * 4 + m * 4 + (tx * ty + 1) * 4 + 12 + 6 * w * h * 4
     b, by = _bound(fwd_bytes, _pair_ops(pairs, "fwd"))
     out["rasterize_fwd"] = {
         "max_abs_err": max(err_img, err_alpha), "tol": TOL["image"],
         "pixels_over_1e-5": int(((kf[0] - pf[0]).abs() > 1e-5).sum()),
-        "pairs": pairs["fwd"],
+        "pairs": pairs["fwd"], "walk": walked["fwd"],
         "ms": time_ms(torch, lambda: R.rasterize_fwd_cuda(*fargs), reps),
         "plain_ms": time_ms(torch, lambda: R.rasterize_fwd_plain(*fargs), 2, 1),
         "bound_ms": b, "bound_by": by, "library_ms": None,
@@ -319,6 +354,8 @@ def kernel_checks(torch, n=None, w=None, h=None, reps=10, scene=None):
     bargs = (table, isect.gauss_ids, isect.tile_offsets, kf[0], kf[1], kf[3],
              v_img, v_alpha, w, h)
     rk = R.rasterize_bwd_cuda(*bargs)
+    check(torch.equal(rk, R.rasterize_bwd_cuda(*bargs)),
+          "rasterize_bwd: two launches on the same inputs differ")
     rp = R.rasterize_bwd_plain(*bargs)
     col_scale = rp.abs().amax(0).clamp_min(1e-30)
     err_rows = (rk - rp).abs().max().item()
@@ -330,7 +367,8 @@ def kernel_checks(torch, n=None, w=None, h=None, reps=10, scene=None):
     b, by = _bound(bwd_bytes, _pair_ops(pairs, "bwd"))
     out["rasterize_bwd"] = {
         "max_abs_err": err_rows, "rel_err": rel_rows, "tol": TOL["rows_rel"],
-        "pairs": pairs["bwd"],
+        "deterministic": True,
+        "pairs": pairs["bwd"], "walk": walked["bwd"],
         "ms": time_ms(torch, lambda: R.rasterize_bwd_cuda(*bargs), reps),
         "plain_ms": time_ms(torch, lambda: R.rasterize_bwd_plain(*bargs), 2, 1),
         "bound_ms": b, "bound_by": by, "library_ms": None,

@@ -8,16 +8,25 @@
 // over (chunk x pixel) matrices.
 //
 // Bound on the H100: operations. Every (instance, pixel) pair up to the
-// pixel's termination costs a quadratic form, an exp and a few FMAs, while
-// the bytes are one 36-byte table row per instance and a few floats per
-// pixel. Design: a 64x32 tile is split into eight 16x16 blocks of one pixel
-// per thread, so 8x as many blocks as tiles fill the 132 SMs; each block
-// walks its tile's instance range [tile_offsets[t], tile_offsets[t+1]),
-// stages batches of 256 table rows in shared memory (one row per thread,
-// read through gauss_ids) and leaves the loop as soon as every pixel of the
-// block has terminated. Each pixel writes its colour with the background
-// folded in, its alpha, and for the backward its final T and the index of
-// its last composited instance (-1 when none).
+// pixel's termination costs at least a quadratic form, while the bytes are
+// one 36-byte table row per instance and a few floats per pixel. Tensor
+// cores do not fit: nothing here is a matrix product. Most pairs (four in
+// five on the bench scene) fail the alpha test, so the design makes that
+// test cheap and keeps pixels moving:
+// - A 64x32 tile is split into eight 16x16 blocks of one pixel per thread,
+//   so 8x as many blocks as tiles fill the 132 SMs; each walks its tile's
+//   instance range [tile_offsets[t], tile_offsets[t+1]) in batches of 256
+//   table rows, read through gauss_ids into shared memory (one row per
+//   thread, padded to 12 floats and read back as three 16-byte loads), and
+//   leaves the loop as soon as every pixel of the block has terminated.
+// - The thread that stages a row also stores its sigma_cut
+//   (raster_common.cuh), so a pair whose sigma is past it is rejected
+//   without the exp.
+// - A thread tests kGroup instances before it composites any of them: the
+//   tests are independent, so their latencies overlap.
+// Each pixel writes its colour with the background folded in, its alpha,
+// and for the backward its final T and the index of its last composited
+// instance (-1 when none).
 
 #include "raster_common.cuh"
 
@@ -28,6 +37,7 @@ using namespace clmgs;
 constexpr int kSub = 16;  // 16x16 sub-block, one pixel per thread
 constexpr int kThreads = kSub * kSub;
 constexpr int kBatch = kThreads;
+constexpr int kGroup = 8;  // instances a thread alpha-tests together
 
 __global__ void __launch_bounds__(kThreads)
     rasterize_fwd_kernel(const float* __restrict__ table,
@@ -37,7 +47,7 @@ __global__ void __launch_bounds__(kThreads)
                          int tiles_x, float* __restrict__ image,
                          float* __restrict__ alpha_out,
                          float* __restrict__ t_out, int* __restrict__ last_out) {
-  __shared__ float s_attr[kBatch][kCols];
+  __shared__ __align__(16) float s_attr[kBatch][kRowStride];
   const int tile = blockIdx.x;
   const int sub = blockIdx.y;  // 4 across, 2 down
   const int x = (tile % tiles_x) * kTileW + (sub & 3) * kSub + (threadIdx.x % kSub);
@@ -59,25 +69,40 @@ __global__ void __launch_bounds__(kThreads)
       const float* row = table + (long long)ids[k] * kCols;
 #pragma unroll
       for (int c = 0; c < kCols; ++c) s_attr[threadIdx.x][c] = row[c];
+      s_attr[threadIdx.x][kCols] = sigma_cut(row[5]);
     }
     __syncthreads();
     const int nb = min(kBatch, end - b0);
-    for (int i = 0; i < nb && !done; ++i) {
-      const float* a = s_attr[i];
-      float dx, dy, vis, ga, alpha;
-      if (!splat_alpha(a, px, py, dx, dy, vis, ga, alpha)) continue;
-      const float next_T = T * (1.f - alpha);
-      if (next_T <= kTEps) {
-        done = true;
-        break;
+    for (int i0 = 0; i0 < nb && !done; i0 += kGroup) {
+      float al[kGroup];
+      unsigned hit = 0;
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) {
+        if (i0 + j >= nb) break;
+        float a[kRowStride];
+        load_row(s_attr[i0 + j], a);
+        float dx, dy, vis, ga;
+        if (!past_cut(a, px, py) && splat_alpha(a, px, py, dx, dy, vis, ga, al[j]))
+          hit |= 1u << j;
       }
-      const float w = alpha * T;
-      c0 += w * a[6];
-      c1 += w * a[7];
-      c2 += w * a[8];
-      acc += w;
-      T = next_T;
-      last = b0 + i;
+      if (!hit) continue;
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) {
+        if (!((hit >> j) & 1u) || done) continue;
+        const float* a = s_attr[i0 + j];
+        const float next_T = T * (1.f - al[j]);
+        if (next_T <= kTEps) {
+          done = true;
+          continue;
+        }
+        const float w = al[j] * T;
+        c0 += w * a[6];
+        c1 += w * a[7];
+        c2 += w * a[8];
+        acc += w;
+        T = next_T;
+        last = b0 + i0 + j;
+      }
     }
   }
   if (inside) {

@@ -207,8 +207,9 @@ def rasterize_fwd_cuda(table, gauss_ids, tile_offsets, background, width: int,
 
     Replaces ops/rasterize.py:321 _fwd_kernel of the reference. Bound by
     operations per (instance, pixel) pair: eight 16x16 blocks per 64x32 tile
-    walk the tile's range with rows staged in shared memory, one pixel per
-    thread, and stop when every pixel of the block has terminated."""
+    walk the tile's range with rows staged in shared memory beside a cut
+    that rejects most pairs without the exp, one pixel per thread, and stop
+    when every pixel of the block has terminated."""
     dev = table.device
     if dev.type != "cuda":
         raise ValueError("rasterize_fwd_cuda takes CUDA tensors")
@@ -239,9 +240,11 @@ def rasterize_bwd_cuda(table, gauss_ids, tile_offsets, image, alpha, last,
     """Kernel 2 (csrc/rasterize_bwd.cu); output as rasterize_bwd_plain.
 
     Replaces ops/rasterize.py:372 _bwd_kernel of the reference. Bound by
-    operations: one block per tile (8 pixels per thread) replays each pixel
-    up to its saved last instance and reduces each instance's 9 gradients
-    over the tile in the block, one row per instance, without atomics."""
+    operations: a cluster of eight 16x16 blocks per tile (one pixel per
+    thread) replays each pixel up to its saved last instance and sums each
+    instance's 9 gradients over the tile through distributed shared memory
+    in a fixed order: one row per instance, without atomics, the same bits
+    every run."""
     dev = table.device
     if dev.type != "cuda":
         raise ValueError("rasterize_bwd_cuda takes CUDA tensors")

@@ -3,15 +3,19 @@
     python3 -m clm_gs_tpu_torch.utils.profile_step [--out DIR]
 
 Builds the bench scene (utils/bench_scene.py: 1M Gaussians, 4 cameras of
-1237x822), runs one warm-up step, times STEPS steps without the profiler,
-then traces STEPS more with torch.profiler (CPU and CUDA activities).
-Prints one JSON line: the card, wall seconds per step with and without the
-profiler, device-busy seconds per step (the sum of kernel, memcpy and
-memset times on the card, from the trace), the idle share of each wall
-time (the unprofiled one assumes the traced steps keep the card as busy
-as the untraced ones), device time per category of kernel, and the top
-kernels by device time. ``--out`` also
-writes the Chrome trace there.
+1237x822), runs one warm-up step, times WALL_STEPS steps one by one without
+the profiler, then traces STEPS more with torch.profiler (CPU and CUDA
+activities). Prints one JSON line: the card, wall seconds per step with the
+profiler and without it (each timed step, their mean and median),
+device-busy seconds per step (the sum of kernel, memcpy and memset times on
+the card, from the trace), the idle share of each wall time (the
+unprofiled one assumes the traced steps keep the card as busy as the
+untraced ones), device time per category of kernel, and the top kernels by
+device time. ``--out`` also writes the Chrome trace there.
+
+The script imports only the package's public step API, so it also times
+another checkout of the package: run it by path from that checkout's root
+with ``PYTHONPATH=.``.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import time
 import torch
 
 STEPS = 3
+WALL_STEPS = 10  # single steps on the card's host vary by several percent
 # kernel name -> category, first match wins
 CATEGORIES = (
     ("compositing bwd (kernel 2)", r"rasterize_bwd_kernel"),
@@ -68,11 +73,13 @@ def main(argv=None) -> int:
 
     state, opt = step(state, opt)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(STEPS):
+    wall_steps = []
+    for _ in range(WALL_STEPS):
+        t0 = time.perf_counter()
         state, opt = step(state, opt)
-    torch.cuda.synchronize()
-    wall_plain = (time.perf_counter() - t0) / STEPS
+        torch.cuda.synchronize()
+        wall_steps.append(time.perf_counter() - t0)
+    wall_plain = sum(wall_steps) / WALL_STEPS
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(STEPS):
@@ -109,6 +116,8 @@ def main(argv=None) -> int:
         "card": smi, "steps": STEPS, "wall_s_per_step": wall,
         "device_busy_s_per_step": busy, "idle_share": 1.0 - busy / wall,
         "wall_s_per_step_unprofiled": wall_plain,
+        "wall_s_unprofiled_median": sorted(wall_steps)[WALL_STEPS // 2],
+        "wall_s_unprofiled_steps": wall_steps,
         "idle_share_unprofiled": 1.0 - busy / wall_plain,
         "ms_per_step_by_category": dict(sorted(cats.items(), key=lambda kv: -kv[1])),
         "top_kernels": [

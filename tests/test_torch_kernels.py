@@ -77,7 +77,46 @@ def _deep_stack(dev, n=2000, width=300, height=200, seed=1):
             width, height)
 
 
-@pytest.mark.parametrize("make", [_scene, _deep_stack])
+def _ragged(dev):
+    """An image whose width and height are multiples of neither 16 nor 64/32:
+    sub-tiles and tiles cut by the edge."""
+    return _scene(dev, n=2000, width=237, height=115, seed=2)
+
+
+def _sparse(dev, n=400, width=300, height=200, seed=3):
+    """Splats only in the top-left corner: most tiles have no instances."""
+    m2d, conics, colors, opac, depths, radii, _, _ = _scene(dev, n, 60, 40, seed)
+    return m2d, conics, colors, opac, depths, radii, width, height
+
+
+def _one_deep_pixel(dev, seed=4):
+    """Faint one-pixel splats piled on one pixel behind a few others:
+    one sub-tile of its tile walks hundreds of instances deeper than the
+    other seven."""
+    g = np.random.RandomState(seed)
+    m2d, conics, colors, opac, depths, radii, width, height = _scene(
+        dev, n=300, width=300, height=200, seed=seed)
+    k = 1500
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    pile = (t(np.tile([[20.5, 10.5]], (k, 1)) + g.uniform(-0.2, 0.2, (k, 2))),
+            t(np.tile([[2.0, 0.0, 2.0]], (k, 1))), t(g.rand(k, 3)),
+            t(g.uniform(0.01, 0.03, k)), t(g.uniform(6, 10, k)), t(np.full(k, 3.0)))
+    out = [torch.cat([a, b]) for a, b in
+           zip((m2d, conics, colors, opac, depths, radii), pile)]
+    return (*out, width, height)
+
+
+def _binned(dev, make):
+    m2d, conics, colors, opac, depths, radii, width, height = make(dev)
+    tx, ty = tile_grid(width, height)
+    ext = tight_extents(conics, opac, radii)
+    isect = isect_tiles(m2d, radii, depths, (64, 32), tx, ty, extents=ext)
+    table = torch.cat([m2d, conics, opac[:, None], colors], 1).contiguous()
+    return table, isect, width, height
+
+
+@pytest.mark.parametrize("make", [_scene, _deep_stack, _ragged, _sparse,
+                                  _one_deep_pixel])
 def test_rasterize_fwd_bwd(dev, make):
     m2d, conics, colors, opac, depths, radii, width, height = make(dev)
     tx, ty = tile_grid(width, height)
@@ -103,3 +142,19 @@ def test_rasterize_fwd_bwd(dev, make):
     rp = rasterize_bwd_plain(*bargs)
     scale = rp.abs().amax(0).clamp_min(1e-6)
     assert ((rk - rp).abs() / scale).max().item() < 1e-4
+
+
+@pytest.mark.parametrize("make", [_scene, _one_deep_pixel])
+def test_rasterize_deterministic(dev, make):
+    """Two launches on the same inputs give identical outputs: the backward
+    sums each row in a fixed order, without atomics."""
+    table, isect, width, height = _binned(dev, make)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+    args = (table, isect.gauss_ids, isect.tile_offsets, bg, width, height)
+    k = rasterize_fwd_cuda(*args)
+    assert all(torch.equal(a, b) for a, b in zip(k, rasterize_fwd_cuda(*args)))
+    g = torch.Generator(device="cpu").manual_seed(1)
+    bargs = (table, isect.gauss_ids, isect.tile_offsets, k[0], k[1], k[3],
+             torch.randn(3, height, width, generator=g).to(dev),
+             torch.randn(height, width, generator=g).to(dev), width, height)
+    assert torch.equal(rasterize_bwd_cuda(*bargs), rasterize_bwd_cuda(*bargs))
