@@ -16,9 +16,11 @@ Phases, one JSON line each:
      train_steps, with each kernel's launch count over the timed steps.
   5. kernels: each kernel against its plain version at the full-width
      shapes of camera 0, with times, bounds and (segment reduce) the time of
-     one PyTorch call computing the same function; the backward is also
-     held to identical rows over two launches, and each compositing kernel
-     reports the (instance, pixel) slots its block shapes walk.
+     one PyTorch call computing the same function; the backward and segment
+     reduce are also held to identical output over two launches, and each
+     compositing kernel reports the (instance, pixel) slots its block shapes
+     walk. At the mid size, fill is also held exactly to its plain version
+     on channels whose only valid slot is the first, with n % 4 == 3.
 Any failed check exits 1. The last line is the device summary. Without CUDA,
 or without the package beside it, the script exits 1 and prints no result.
 """
@@ -48,6 +50,9 @@ OPS_CULLED = 13
 OPS_TESTED = 17
 OPS_COMPOSITED = {"fwd": OPS_TESTED + 11, "bwd": OPS_TESTED + 46}
 KINDS = ("cut", "culled", "tested", "composited")
+# about 1 ms of the card's clock: longer than the host takes to queue the
+# timed launches of a short kernel
+SLEEP_CYCLES = 2_000_000
 
 KERNELS = {
     "fill": ("clm_gs_tpu_torch/csrc/fill.cu", "clm_gs_tpu/ops/fill_pallas.py:35"),
@@ -124,11 +129,15 @@ def main(argv=None) -> int:
 
 
 def time_ms(torch, fn, reps=10, warmup=2):
+    """Device time per call of `fn`: CUDA events around `reps` calls queued
+    behind a busy wait of the card, so that a kernel shorter than the host's
+    time to launch it is timed, and not the host's pace."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -308,6 +317,16 @@ def kernel_checks(torch, n=None, w=None, h=None, reps=10, scene=None):
                    "ms": time_ms(torch, lambda: fill.forward_fill_cuda(ch), reps),
                    "plain_ms": time_ms(torch, lambda: fill.forward_fill_plain(ch), 3, 1),
                    "bound_ms": b, "bound_by": by, "library_ms": None}
+    if scene is None:
+        # one valid slot, the first, in rows that start off 16-byte
+        # boundaries: every block finds its carry only through the others
+        n_adv = 4 * (n_isects // 4) + 3
+        adv = torch.randint(1, 1000, (3, n_adv), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(7)).cuda()
+        adv[0, 1:] = 0
+        check(torch.equal(fill.forward_fill_cuda(adv), fill.forward_fill_plain(adv)),
+              "fill kernel differs from its plain version on one valid slot")
+        out["fill"]["adversarial"] = {"n": n_adv, "valid": 1, "exact": True}
 
     # binning on the card against the plain path on the CPU
     isect = tiles.isect_tiles(m2d, radii, depths, (R.TILE_W, R.TILE_H), tx, ty,
@@ -374,11 +393,13 @@ def kernel_checks(torch, n=None, w=None, h=None, reps=10, scene=None):
         "bound_ms": b, "bound_by": by, "library_ms": None,
     }
 
-    # kernel 3 on the sorted rows
+    # kernel 3 on the rows in sorted order, as the main path gathers them
     ids_sorted, perm = torch.sort(isect.gauss_ids, stable=True)
     rows_sorted = rk[perm].contiguous()
     ng = table.shape[0]
-    sk = segreduce.segment_reduce_cuda(ids_sorted, rows_sorted, ng)
+    seg = lambda: segreduce.segment_reduce_cuda(ids_sorted, rows_sorted, ng)
+    sk = seg()
+    check(torch.equal(sk, seg()), "segreduce: two launches on the same inputs differ")
     sp = segreduce.segment_reduce_plain(ids_sorted, rows_sorted, ng)
     err_seg = (sk - sp).abs().max().item()
     rel_seg = err_seg / max(sp.abs().max().item(), 1e-30)
@@ -387,14 +408,16 @@ def kernel_checks(torch, n=None, w=None, h=None, reps=10, scene=None):
     b, by = _bound(m * 4 + m * 36 + ng * 36, 0)
     out["segreduce"] = {
         "max_abs_err": err_seg, "rel_err": rel_seg, "tol": TOL["segreduce_rel"],
-        "ms": time_ms(torch, lambda: segreduce.segment_reduce_cuda(
-            ids_sorted, rows_sorted, ng), reps),
+        "deterministic": True,
+        "ms": time_ms(torch, seg, reps),
         "plain_ms": time_ms(torch, lambda: segreduce.segment_reduce_plain(
             ids_sorted, rows_sorted, ng), reps),
         "library_ms": time_ms(torch, lambda: torch.zeros(
             ng, 9, device=rows_sorted.device).index_add_(0, ids_long, rows_sorted),
             reps),
         "bound_ms": b, "bound_by": by,
+        # the main path's gather of the rows into sorted order, in torch
+        "gather_ms": time_ms(torch, lambda: rk[perm].contiguous(), reps),
     }
     return out
 

@@ -15,8 +15,8 @@ import torch
 from clm_gs_tpu_torch import _build
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+COLS = 9  # the rasterizer's table width, the only row width the kernel takes
 
 
 def segment_reduce_plain(ids_sorted, rows, n: int):
@@ -30,8 +30,10 @@ def segment_reduce_cuda(ids_sorted, rows, n: int):
     """The same through csrc/segreduce.cu.
 
     Replaces ops/segreduce.py:45 _kernel of the reference (a one-hot MXU
-    matmul). Bound by bytes: run bounds from the sorted ids, then one thread
-    per (Gaussian, column) sums its run in order, without atomics."""
+    matmul). Bound by bytes: one launch, each block finds its Gaussians' rows
+    by a search of the sorted ids, streams them through shared memory and
+    sums each run with a segmented warp scan, without atomics or scratch, in
+    an order fixed by the data. Takes rows of COLS columns."""
     m = ids_sorted.shape[0]
     dev = rows.device
     if dev.type != "cuda":
@@ -39,14 +41,15 @@ def segment_reduce_cuda(ids_sorted, rows, n: int):
     _build.require(ids_sorted, "ids_sorted", torch.int32, (m,), dev)
     _build.require(rows, "rows", torch.float32, (m, rows.shape[1]), dev)
     cols = rows.shape[1]
-    if m >= 2**31 or n * cols >= 2**40:
+    if cols != COLS:
+        raise ValueError(f"segment_reduce_cuda takes rows of {COLS} columns, "
+                         f"not {cols}")
+    if m >= 2**31 or n >= 2**31:
         raise ValueError("segment_reduce_cuda: sizes exceed its indexing")
     out = torch.empty((n, cols), dtype=torch.float32, device=dev)
-    lo = torch.empty(n, dtype=torch.int32, device=dev)
-    hi = torch.empty(n, dtype=torch.int32, device=dev)
     _build.launch("segreduce", "clmgs_segment_reduce", _ARGTYPES, dev,
                   _build.ptr(ids_sorted), _build.ptr(rows), m, n, cols,
-                  _build.ptr(lo), _build.ptr(hi), _build.ptr(out))
+                  _build.ptr(out))
     return out
 
 

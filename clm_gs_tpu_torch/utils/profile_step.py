@@ -6,16 +6,17 @@ Builds the bench scene (utils/bench_scene.py: 1M Gaussians, 4 cameras of
 1237x822), runs one warm-up step, times WALL_STEPS steps one by one without
 the profiler, then traces STEPS more with torch.profiler (CPU and CUDA
 activities). Prints one JSON line: the card, wall seconds per step with the
-profiler and without it (each timed step, their mean and median),
-device-busy seconds per step (the sum of kernel, memcpy and memset times on
-the card, from the trace), the idle share of each wall time (the
-unprofiled one assumes the traced steps keep the card as busy as the
-untraced ones), device time per category of kernel, and the top kernels by
-device time. ``--out`` also writes the Chrome trace there.
+profiler and without it (each timed step, their mean and median), the
+peak device memory over the untraced steps, device-busy seconds per step
+(the sum of kernel, memcpy and memset times on the card, from the trace),
+the idle share of each wall time (the unprofiled one assumes the traced
+steps keep the card as busy as the untraced ones), device time per category
+of kernel, and the top kernels by device time. ``--out`` also writes the Chrome trace there.
 
 The script imports only the package's public step API, so it also times
 another checkout of the package: run it by path from that checkout's root
-with ``PYTHONPATH=.``.
+with ``PYTHONPATH=.``, or run this script by path with ``PYTHONPATH`` set to
+the other checkout.
 """
 
 from __future__ import annotations
@@ -34,8 +35,10 @@ WALL_STEPS = 10  # single steps on the card's host vary by several percent
 CATEGORIES = (
     ("compositing bwd (kernel 2)", r"rasterize_bwd_kernel"),
     ("compositing fwd (kernel 1)", r"rasterize_fwd_kernel"),
-    ("segment reduce (kernel 3)", r"run_sums|run_bounds"),
-    ("forward fill (kernel 4)", r"block_last_valid|scan_carries|fill_apply"),
+    # with the names of the earlier three-launch kernels 3 and 4, so that
+    # this script also profiles a checkout from before their redesign
+    ("segment reduce (kernel 3)", r"segment_sums|run_sums|run_bounds"),
+    ("forward fill (kernel 4)", r"fill_tile|block_last_valid|scan_carries|fill_apply"),
     ("sort", r"[Ss]ort|radix|Radix"),
     ("scan (cumsum)", r"[Ss]can"),
     ("gather/scatter/index", r"index|[Ss]catter|[Gg]ather"),
@@ -73,6 +76,7 @@ def main(argv=None) -> int:
 
     state, opt = step(state, opt)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     wall_steps = []
     for _ in range(WALL_STEPS):
         t0 = time.perf_counter()
@@ -80,6 +84,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall_steps.append(time.perf_counter() - t0)
     wall_plain = sum(wall_steps) / WALL_STEPS
+    peak = torch.cuda.max_memory_allocated()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(STEPS):
@@ -119,6 +124,7 @@ def main(argv=None) -> int:
         "wall_s_unprofiled_median": sorted(wall_steps)[WALL_STEPS // 2],
         "wall_s_unprofiled_steps": wall_steps,
         "idle_share_unprofiled": 1.0 - busy / wall_plain,
+        "max_memory_allocated": peak,
         "ms_per_step_by_category": dict(sorted(cats.items(), key=lambda kv: -kv[1])),
         "top_kernels": [
             {"name": n[:120], "calls_per_step": c / STEPS,

@@ -3,11 +3,12 @@
 Marked ``cuda``; skipped where CUDA is unavailable (a CUDA kernel has no CPU
 mode). Run on a machine with the card:
 ``python -m pytest tests/test_torch_kernels.py --noconftest -q``.
-Tolerances: fill, binning and the instance order are exact; the compositing
-forward differs by float rounding (the kernel's FMAs and sequential T against
-the plain version's cumulative products), which can flip a pixel's stop
-decision near T = 1e-4 and change it by about 1e-4 alpha times a colour of
-up to ~2: 5e-4 absolute, as in chip_smoke.py.
+Tolerances: fill, binning and the instance order are exact; segment reduce
+is held to 1e-5 of its largest output and to identical output over two
+launches; the compositing forward differs by float rounding (the kernel's
+FMAs and sequential T against the plain version's cumulative products),
+which can flip a pixel's stop decision near T = 1e-4 and change it by about
+1e-4 alpha times a colour of up to ~2: 5e-4 absolute, as in chip_smoke.py.
 The backward gets the same saved forward from both, so it never re-decides
 termination: 1e-4 of the largest row entry.
 """
@@ -33,13 +34,34 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n", [1, 1023, 1024, 5000, 300_001])
-def test_fill(dev, n):
-    rng = np.random.RandomState(n)
+def _fill_input(n, c, pattern, seed):
+    """(c, n) int32 channels; channel 0 is valid (nonzero) at the slots the
+    pattern picks, and the other channels hold junk at invalid slots, which
+    the fill must never copy."""
+    rng = np.random.RandomState(seed)
     valid = rng.rand(n) < 0.03
-    x = np.stack([np.where(valid, rng.randint(1, 1000, n), 0) for _ in range(3)])
-    x = torch.from_numpy(x.astype(np.int32)).to(dev)
-    assert torch.equal(forward_fill_cuda(x), forward_fill_plain(x))
+    if pattern == "gap":  # invalid across many blocks and past the look-back
+        valid[n // 20: n - n // 5] = False
+    elif pattern in ("first", "last", "none"):
+        valid[:] = False
+        if n and pattern != "none":
+            valid[0 if pattern == "first" else n - 1] = True
+    x = rng.randint(1, 1000, (c, n))
+    x[0] = np.where(valid, x[0], 0)
+    return x.astype(np.int32)
+
+
+@pytest.mark.parametrize("n,c,pattern", [
+    (1, 3, "random"), (1023, 3, "random"), (1024, 3, "random"),
+    (4098, 3, "random"), (5000, 3, "random"), (300_001, 3, "random"),
+    (300_003, 1, "random"), (5001, 1, "random"), (6_002, 4, "random"),
+    (300_001, 3, "gap"), (300_002, 1, "gap"), (300_002, 3, "first"),
+    (200_003, 3, "last"), (100_001, 3, "none"), (0, 3, "random")])
+def test_fill(dev, n, c, pattern):
+    x = torch.from_numpy(_fill_input(n, c, pattern, n + c)).to(dev)
+    want = forward_fill_plain(x)
+    assert torch.equal(forward_fill_cuda(x), want)
+    assert torch.equal(forward_fill_cuda(x), want)  # a second call, new epoch
 
 
 def test_segment_reduce(dev):
@@ -50,6 +72,35 @@ def test_segment_reduce(dev):
     got = segment_reduce_cuda(ids, rows, n)
     want = segment_reduce_plain(ids, rows, n)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _seg_ids(case, n, rng):
+    if case == "deep":  # one Gaussian of 5,000 rows among shallow ones
+        ids = np.concatenate([rng.randint(0, n, 20_000), np.full(5000, n // 3)])
+    elif case == "out_of_range":
+        ids = np.concatenate([rng.randint(-50, 0, 3000), rng.randint(n, n + 50, 3000)])
+    elif case == "empty":
+        ids = np.zeros(0, np.int64)
+    else:  # shallow runs, some ids out of range
+        ids = rng.randint(-2, n + 3, 30_000)
+    return np.sort(ids).astype(np.int32)
+
+
+@pytest.mark.parametrize("case,n", [("deep", 4096), ("deep", 1001), ("out_of_range", 4096),
+                                    ("empty", 1001), ("ragged", 1001), ("ragged", 257)])
+def test_segment_reduce_cases(dev, case, n):
+    """Within 1e-5 of the largest output (the tolerance of chip_smoke.py),
+    and identical over two launches. n = 1001 and 257 are not multiples of a
+    block's 512 Gaussians; the deep run crosses batches and blocks' searches."""
+    rng = np.random.RandomState(n)
+    ids = _seg_ids(case, n, rng)
+    rows = rng.normal(size=(ids.shape[0], 9)).astype(np.float32)
+    ids, rows = torch.from_numpy(ids).to(dev), torch.from_numpy(rows).to(dev)
+    got = segment_reduce_cuda(ids, rows, n)
+    want = segment_reduce_plain(ids, rows, n)
+    assert got.shape == (n, 9)
+    assert (got - want).abs().max().item() <= 1e-5 * max(want.abs().max().item(), 1.0)
+    assert torch.equal(got, segment_reduce_cuda(ids, rows, n))
 
 
 def _scene(dev, n=3000, width=300, height=200, seed=0):
