@@ -21,6 +21,15 @@ Phases, one JSON line each:
      compositing kernel reports the (instance, pixel) slots its block shapes
      walk. At the mid size, fill is also held exactly to its plain version
      on channels whose only valid slot is the first, with n % 4 == 3.
+  6. cli: the bench scene's 1M Gaussians written as a COLMAP scene (32
+     cameras of 1237x822, utils/synthetic_colmap.py) and trained through
+     the CLI's main with FULL_TRAIN_ARGS: 200 iterations, densification
+     past the first capacity, an opacity reset, eval, a PLY and a
+     checkpoint, with each kernel's launch count over the run; then
+     `python -m clm_gs_tpu_torch.train` resumes from the checkpoint. Checks
+     the losses, the growth, the PSNR, the PLY against the final state,
+     release_scripts/log2csv.py on the run, the resume, and the fill after
+     its flags regrow. The kernels line follows it.
 Any failed check exits 1. The last line is the device summary. Without CUDA,
 or without the package beside it, the script exits 1 and prints no result.
 """
@@ -28,6 +37,7 @@ or without the package beside it, the script exits 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import csv
 import json
 import subprocess
 import sys
@@ -183,10 +193,18 @@ def run(torch, report):
     # 5. kernels at the full-width shapes
     full = kernel_checks(torch, reps=10, scene=scene)
     report["kernels_full"] = full
+    del scene
+    torch.cuda.empty_cache()
+
+    # 6. the training CLI on a synthetic COLMAP scene at full width
+    report["cli"] = cli_run(torch)
+    emit(report["cli"])
+
     launches = report["full"]["launches"]
     emit({"kernels": [
         {"name": k, "status": "ported", "route": "cuda", "source": KERNELS[k][0],
          "replaces": KERNELS[k][1], "launches": launches.get(k, 0),
+         "cli_launches": report["cli"]["launches"].get(k, 0),
          "max_abs_err": full[k]["max_abs_err"], "ms": full[k]["ms"],
          "plain_ms": full[k]["plain_ms"], "bound_ms": full[k]["bound_ms"],
          "bound_by": full[k]["bound_by"], "library_ms": full[k]["library_ms"]}
@@ -584,6 +602,177 @@ def full_width(torch):
         "n_isects": n_isects, "max_memory_allocated": peak,
         "launches": launches,
     }
+
+
+# The cli phase: the bench scene as a COLMAP scene on disk, trained through
+# the CLI with synthetic_colmap.FULL_TRAIN_ARGS (its densification threshold
+# makes the model outgrow its first capacity; PERF.md §4).
+def _parse_log(text):
+    """What the cli phase reads from a python.log."""
+    out = {"losses": [], "n3dgs": [], "capacity": [], "densify": [],
+           "test_psnr": [], "timers": {}, "resets": 0, "end2end": None}
+    for ln in text.splitlines():
+        if " loss: " in ln:
+            out["losses"].append(float(ln.split("loss: ")[1].split()[0]))
+            out["n3dgs"].append(int(ln.split("n3dgs: ")[1]))
+        elif ln.startswith("capacity "):
+            a, b = ln.split()[1], ln.split()[3]
+            out["capacity"].append([int(a), int(b)])
+        elif "densify_and_prune. Now num of 3dgs:" in ln:
+            out["densify"].append(int(ln.split("3dgs: ")[1].split(".")[0]))
+        elif ln.endswith(" reset_opacity"):
+            out["resets"] += 1
+        elif "Evaluating test:" in ln:
+            out["test_psnr"].append(float(ln.split("PSNR ")[1]))
+        elif ln.startswith("end2end total_time:"):
+            out["end2end"] = (float(ln.split("total_time: ")[1].split(" s")[0]),
+                              float(ln.split("throughput ")[1].split(" it/s")[0]))
+        elif " ms over " in ln and ": sum " in ln:
+            key, rest = ln.split(": sum ")
+            ms, calls = rest.split(" ms over ")
+            out["timers"][key] = (float(ms), int(calls.split()[0]))
+        elif ln.startswith("Initialized "):
+            out["initialized"] = int(ln.split()[1])
+    return out
+
+
+def _fill_flag_words(torch):
+    from clm_gs_tpu_torch.ops import fill
+
+    st = fill._FLAGS.get(torch.device("cuda", torch.cuda.current_device()))
+    return 0 if st is None else st[0].numel()
+
+
+def fill_regrow_check(torch):
+    """The fill's look-back flags are reallocated when a call needs more
+    blocks than they hold: calls just past the current size, then smaller
+    ones on the regrown flags, each exactly equal to the plain version."""
+    from clm_gs_tpu_torch.ops import fill
+
+    g = torch.Generator(device="cpu").manual_seed(5)
+    sizes = []
+    for n in (_fill_flag_words(torch) * fill.FLAG_SLOTS + 4099, 1_000_003, 77):
+        x = torch.randint(1, 9, (3, n), dtype=torch.int32, generator=g)
+        x[:, torch.rand(n, generator=g) < 0.7] = 0
+        x = x.cuda()
+        check(torch.equal(fill.forward_fill_cuda(x), fill.forward_fill_plain(x)),
+              f"fill differs from its plain version at n = {n} after regrowth")
+        sizes.append([n, _fill_flag_words(torch)])
+    return {"n_and_flag_words": sizes, "exact": True}
+
+
+def cli_run(torch):
+    """`main` of clm_gs_tpu_torch.train on the full synthetic scene (launch
+    counts over the run), then `python -m clm_gs_tpu_torch.train` resuming
+    from its checkpoint; checks the run's log, PLY and log2csv."""
+    import tempfile
+    from pathlib import Path
+
+    from clm_gs_tpu_torch import _build
+    from clm_gs_tpu_torch.models import gaussians as G
+    from clm_gs_tpu_torch.train import main as train_main
+    from clm_gs_tpu_torch.utils.synthetic_colmap import FULL_TRAIN_ARGS, make_dataset
+
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as work:
+        t0 = time.perf_counter()
+        scene = make_dataset(f"{work}/scene", full=True)
+        scene_s = time.perf_counter() - t0
+        out = f"{work}/run"
+        argv = ["-s", scene, "-m", out, "--decode_dataset_path",
+                f"{work}/decoded", "--quiet"] + FULL_TRAIN_ARGS
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flags_before = _fill_flag_words(torch)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        state, _ = train_main(argv)
+        run_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        flags_after = _fill_flag_words(torch)
+        log = _parse_log(Path(out, "python.log").read_text())
+
+        ply = Path(out, "point_cloud", "iteration_200", "point_cloud.ply")
+        with open(ply, "rb") as f:
+            head = f.read(4096).decode("ascii", errors="replace")
+        ply_rows = int(head.split("element vertex ")[1].split()[0])
+        alive = state.alive
+        back = G.load_ply(str(ply), device=state.params.xyz.device)
+        ply_equal = all(torch.equal(getattr(back.params, f)[back.alive],
+                                    getattr(state.params, f)[alive])
+                        for f in ("xyz", "opacity", "log_scale", "quat", "sh"))
+        n_end = state.n_alive
+        del state, back, alive
+        torch.cuda.empty_cache()
+        l2c = subprocess.run(
+            [sys.executable, str(root / "release_scripts" / "log2csv.py"), out,
+             "-o", f"{work}/r.csv"], capture_output=True, text=True, check=False,
+            timeout=120)
+        csv_rows = []
+        if l2c.returncode == 0:
+            with open(f"{work}/r.csv", newline="") as f:
+                csv_rows = list(csv.DictReader(f))
+
+        ckpt = Path(out, "checkpoints", "101")
+        out2 = f"{work}/resume"
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "clm_gs_tpu_torch.train", "-s", scene, "-m", out2,
+             "--decode_dataset_path", f"{work}/decoded", "--quiet",
+             "--start_checkpoint", str(ckpt), "--do_not_save"]
+            + [a for a in FULL_TRAIN_ARGS if a != "--enable_timer"],
+            cwd=root, capture_output=True, text=True, check=False, timeout=600)
+        resume_s = time.perf_counter() - t0
+        log2_text = (Path(out2, "python.log").read_text()
+                     if Path(out2, "python.log").exists() else "")
+    log2 = _parse_log(log2_text)
+
+    steps = log["timers"].get("train_step", (0.0, 0))[1]
+    tm = {k: v[0] / max(v[1], 1) for k, v in log["timers"].items()}
+    e2e_s, it_s = log["end2end"] or (float("nan"), float("nan"))
+    loop_ms = sum(log["timers"].get(k, (0.0, 0))[0]
+                  for k in ("train_step", "data_next", "densify"))
+    result = {
+        "phase": "cli", "args": FULL_TRAIN_ARGS,
+        "width": 1237, "height": 822, "scene_s": scene_s, "run_s": run_s,
+        "gaussians_start": log.get("initialized"), "gaussians_end": n_end,
+        "capacity_growths": log["capacity"], "densify_rounds": len(log["densify"]),
+        "densify_counts": log["densify"], "resets": log["resets"],
+        "test_psnr": log["test_psnr"], "losses": log["losses"], "n3dgs": log["n3dgs"],
+        "end2end_s": e2e_s, "it_per_s": it_s, "steps": steps,
+        "timer_mean_ms": tm, "timer_sum_ms": {k: v[0] for k, v in log["timers"].items()},
+        "host_ms_per_step": (e2e_s * 1e3 - loop_ms) / max(steps, 1),
+        "peak_device_bytes": peak, "launches": launches,
+        "fill_flag_words": [flags_before, flags_after],
+        "fill_regrow": fill_regrow_check(torch),
+        "ply_rows": ply_rows, "ply_equal": ply_equal, "log2csv": csv_rows,
+        "resume": {"rc": res.returncode, "s": resume_s,
+                   "resumed": "Resumed from" in log2_text,
+                   "end2end": log2["end2end"], "test_psnr": log2["test_psnr"],
+                   "densify_counts": log2["densify"]},
+    }
+    if res.returncode != 0:
+        print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
+    finite = all(v == v and abs(v) != float("inf") for v in log["losses"])
+    check(finite and log["losses"], f"cli: losses {log['losses']}")
+    check(all(launches.get(k, 0) > 0 for k in KERNELS),
+          f"cli: a kernel of the path never launched: {launches}")
+    check(n_end > (log.get("initialized") or n_end), "cli: the model did not grow")
+    check(log["capacity"], "cli: the model never outgrew its first capacity")
+    check(log["resets"] >= 1, "cli: no reset_opacity line")
+    check(len(log["test_psnr"]) >= 2 and log["test_psnr"][-1] > log["test_psnr"][0],
+          f"cli: test PSNR did not rise: {log['test_psnr']}")
+    check(ply_rows == n_end and ply_equal,
+          f"cli: PLY rows {ply_rows} vs n_alive {n_end}, equal {ply_equal}")
+    check(len(csv_rows) == 1 and all(csv_rows[0][k] for k in (
+        "test_psnr", "train_psnr", "num_3dgs", "total_time_s", "throughput")),
+          f"cli: log2csv: rc {l2c.returncode} {l2c.stderr[-500:]} {csv_rows}")
+    last = (log2_text.rstrip().splitlines() or [""])[-1]
+    check(res.returncode == 0 and result["resume"]["resumed"]
+          and last.startswith("end2end total_time:"),
+          f"cli: the resumed call failed (rc {res.returncode}): {last}")
+    return result
 
 
 if __name__ == "__main__":

@@ -45,6 +45,14 @@ def get_projection_matrix(znear, zfar, fovx, fovy) -> np.ndarray:
     return P
 
 
+def fov2focal(fov, pixels):
+    return pixels / (2 * math.tan(fov / 2))
+
+
+def focal2fov(focal, pixels):
+    return 2 * math.atan(pixels / (2 * focal))
+
+
 def intrinsics_from_fov(fovx, fovy, width, height) -> np.ndarray:
     fx = width / (2 * math.tan(fovx * 0.5))
     fy = height / (2 * math.tan(fovy * 0.5))

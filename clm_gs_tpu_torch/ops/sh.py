@@ -29,6 +29,15 @@ C3 = (
 )
 
 
+def rgb_to_sh(rgb):
+    """RGB in [0, 1] -> DC coefficient."""
+    return (rgb - 0.5) / C0
+
+
+def sh_to_rgb(sh):
+    return sh * C0 + 0.5
+
+
 def sh_basis(dirs):
     """(..., 3) unnormalized directions -> (..., 16) SH basis values."""
     d = dirs / (torch.linalg.norm(dirs, dim=-1, keepdim=True) + 1e-12)

@@ -9,7 +9,7 @@ and leaves its inputs untouched.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict
 
 import torch
@@ -102,4 +102,28 @@ def adam_step(
         GaussianParams(**new_p),
         AdamState(mu=GaussianParams(**new_m), nu=GaussianParams(**new_v),
                   steps=steps),
+    )
+
+
+def _zero_where(x, mask):
+    bshape = (x.shape[0],) + (1,) * (x.ndim - 1)
+    return torch.where(mask.reshape(bshape), torch.zeros_like(x), x)
+
+
+def zero_rows(state: AdamState, mask: torch.Tensor) -> AdamState:
+    """Zero both moments at the masked rows (optimizer-state surgery on
+    densify and prune)."""
+    return AdamState(
+        mu=GaussianParams(*(_zero_where(x, mask) for x in state.mu.astuple())),
+        nu=GaussianParams(*(_zero_where(x, mask) for x in state.nu.astuple())),
+        steps=state.steps,
+    )
+
+
+def zero_opacity_rows(state: AdamState, mask: torch.Tensor) -> AdamState:
+    """Opacity reset: only the opacity group's moments are cleared."""
+    return replace(
+        state,
+        mu=replace(state.mu, opacity=_zero_where(state.mu.opacity, mask)),
+        nu=replace(state.nu, opacity=_zero_where(state.nu.opacity, mask)),
     )

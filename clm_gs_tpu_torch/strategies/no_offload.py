@@ -1,10 +1,11 @@
 """no_offload strategy: everything resident on the card
-(clm_gs_tpu/strategies/no_offload.py:29-186).
+(clm_gs_tpu/strategies/no_offload.py:29-214).
 
 ``train_step`` is the reference's one-camera-at-a-time path (``G = 1``,
 no_offload.py:81-126): each camera runs render -> loss -> backward, the
 parameter gradients accumulate in ``.grad``, and after the loop they are
-divided by the batch size before (selective) Adam.
+divided by the batch size before (selective) Adam. ``eval_one_cam`` and
+``eval_batch`` are the eval renders of the training loop (train.py).
 """
 
 from __future__ import annotations
@@ -112,3 +113,21 @@ def eval_one_cam(state: GaussianState, viewmat, Kmat, camtoworld,
         width, height, background,
     )
     return out.image, out.n_isects
+
+
+@torch.no_grad()
+def eval_batch(state: GaussianState, cb, gts, sh_degree: int, background,
+               width: int, height: int):
+    """Render a batch of eval cameras; returns (l1s (E,), psnrs (E,)) as
+    tensors, read by the caller once for the whole batch. PSNR is of the
+    clamped image, with the mse floored at 1e-12."""
+    l1s, psnrs = [], []
+    for b in range(cb.viewmats.shape[0]):
+        out = render_one_cam(
+            state.params, state.alive, cb.viewmats[b], cb.Ks[b],
+            cb.camtoworlds[b, :3, 3], sh_degree, width, height, background,
+        )
+        l1s.append(torch.mean(torch.abs(out.image - gts[b])))
+        mse = torch.mean((torch.clamp(out.image, 0.0, 1.0) - gts[b]) ** 2)
+        psnrs.append(-10.0 * torch.log10(torch.clamp_min(mse, 1e-12)))
+    return torch.stack(l1s), torch.stack(psnrs)
