@@ -22,14 +22,18 @@ Phases, one JSON line each:
      walk. At the mid size, fill is also held exactly to its plain version
      on channels whose only valid slot is the first, with n % 4 == 3.
   6. cli: the bench scene's 1M Gaussians written as a COLMAP scene (32
-     cameras of 1237x822, utils/synthetic_colmap.py) and trained through
-     the CLI's main with FULL_TRAIN_ARGS: 200 iterations, densification
-     past the first capacity, an opacity reset, eval, a PLY and a
-     checkpoint, with each kernel's launch count over the run; then
-     `python -m clm_gs_tpu_torch.train` resumes from the checkpoint. Checks
-     the losses, the growth, the PSNR, the PLY against the final state,
-     release_scripts/log2csv.py on the run, the resume, and the fill after
-     its flags regrow. The kernels line follows it.
+     cameras of 1237x822, utils/synthetic_colmap.py). A short run to the
+     first densification round reports the rows each gradient threshold
+     would add there. Then the CLI's main trains the scene with
+     FULL_TRAIN_ARGS: 200 iterations, densification past the first
+     capacity, an opacity reset, eval, a PLY and a checkpoint, with each
+     kernel's launch count over the run and the --enable_timer spans of
+     its loop. Each kernel is held against its plain version on the final
+     state seen by a train camera (segment reduce over the grown
+     capacity). Then `python -m clm_gs_tpu_torch.train` resumes from the
+     checkpoint. Checks the losses, the growth, the PSNR, the PLY against
+     the final state, release_scripts/log2csv.py on the run, the resume,
+     and the fill after its flags regrow. The kernels line follows it.
 Any failed check exits 1. The last line is the device summary. Without CUDA,
 or without the package beside it, the script exits 1 and prints no result.
 """
@@ -306,9 +310,10 @@ def camera_inputs(torch, state, cb, b):
     return tuple(t.contiguous() for t in out)
 
 
-def kernel_checks(torch, n=None, w=None, h=None, reps=10, scene=None):
+def kernel_checks(torch, n=None, w=None, h=None, reps=10, scene=None, timed=True):
     """Each kernel against its plain version on the inputs the main path
-    gives it for one camera; times, errors and bounds."""
+    gives it for one camera: errors, and unless `timed` is false, times and
+    bounds."""
     from clm_gs_tpu_torch.ops import fill, rasterize as R, segreduce, tiles
     from clm_gs_tpu_torch.strategies.base import photometric_loss
     from clm_gs_tpu_torch.utils.bench_scene import make_scene
@@ -329,12 +334,13 @@ def kernel_checks(torch, n=None, w=None, h=None, reps=10, scene=None):
     k = fill.forward_fill_cuda(ch)
     p = fill.forward_fill_plain(ch)
     check(torch.equal(k, p), "fill kernel differs from its plain version")
-    nbytes = 2 * ch.numel() * 4
-    b, by = _bound(nbytes, 0)
-    out["fill"] = {"max_abs_err": 0.0, "tol": 0, "n": n_isects,
-                   "ms": time_ms(torch, lambda: fill.forward_fill_cuda(ch), reps),
-                   "plain_ms": time_ms(torch, lambda: fill.forward_fill_plain(ch), 3, 1),
-                   "bound_ms": b, "bound_by": by, "library_ms": None}
+    out["fill"] = {"max_abs_err": 0.0, "tol": 0, "n": n_isects}
+    if timed:
+        b, by = _bound(2 * ch.numel() * 4, 0)
+        out["fill"].update(
+            ms=time_ms(torch, lambda: fill.forward_fill_cuda(ch), reps),
+            plain_ms=time_ms(torch, lambda: fill.forward_fill_plain(ch), 3, 1),
+            bound_ms=b, bound_by=by, library_ms=None)
     if scene is None:
         # one valid slot, the first, in rows that start off 16-byte
         # boundaries: every block finds its carry only through the others
@@ -368,20 +374,22 @@ def kernel_checks(torch, n=None, w=None, h=None, reps=10, scene=None):
     torch.cuda.synchronize()
     check(err_img <= TOL["image"] and err_alpha <= TOL["image"],
           f"rasterize_fwd: image err {err_img}, alpha err {err_alpha}")
-    pairs, depth = pair_counts(torch, table, isect.gauss_ids, isect.tile_offsets,
-                               kf[3], w, h)
-    walked = walks(depth)
     m = isect.n_isects
-    fwd_bytes = table.numel() * 4 + m * 4 + (tx * ty + 1) * 4 + 12 + 6 * w * h * 4
-    b, by = _bound(fwd_bytes, _pair_ops(pairs, "fwd"))
     out["rasterize_fwd"] = {
         "max_abs_err": max(err_img, err_alpha), "tol": TOL["image"],
         "pixels_over_1e-5": int(((kf[0] - pf[0]).abs() > 1e-5).sum()),
-        "pairs": pairs["fwd"], "walk": walked["fwd"],
-        "ms": time_ms(torch, lambda: R.rasterize_fwd_cuda(*fargs), reps),
-        "plain_ms": time_ms(torch, lambda: R.rasterize_fwd_plain(*fargs), 2, 1),
-        "bound_ms": b, "bound_by": by, "library_ms": None,
     }
+    if timed:
+        pairs, depth = pair_counts(torch, table, isect.gauss_ids,
+                                   isect.tile_offsets, kf[3], w, h)
+        walked = walks(depth)
+        fwd_bytes = table.numel() * 4 + m * 4 + (tx * ty + 1) * 4 + 12 + 6 * w * h * 4
+        b, by = _bound(fwd_bytes, _pair_ops(pairs, "fwd"))
+        out["rasterize_fwd"].update(
+            pairs=pairs["fwd"], walk=walked["fwd"],
+            ms=time_ms(torch, lambda: R.rasterize_fwd_cuda(*fargs), reps),
+            plain_ms=time_ms(torch, lambda: R.rasterize_fwd_plain(*fargs), 2, 1),
+            bound_ms=b, bound_by=by, library_ms=None)
 
     # kernel 2, with the loss gradient the main path gives it
     img = kf[0].clone().requires_grad_(True)
@@ -399,17 +407,19 @@ def kernel_checks(torch, n=None, w=None, h=None, reps=10, scene=None):
     rel_rows = ((rk - rp).abs() / col_scale).max().item()
     check(rel_rows <= TOL["rows_rel"] and bool(torch.isfinite(rk).all()),
           f"rasterize_bwd: rows rel err {rel_rows}")
-    bwd_bytes = (table.numel() * 4 + m * 4 + (tx * ty + 1) * 4 + 9 * w * h * 4
-                 + m * 9 * 4)
-    b, by = _bound(bwd_bytes, _pair_ops(pairs, "bwd"))
     out["rasterize_bwd"] = {
         "max_abs_err": err_rows, "rel_err": rel_rows, "tol": TOL["rows_rel"],
         "deterministic": True,
-        "pairs": pairs["bwd"], "walk": walked["bwd"],
-        "ms": time_ms(torch, lambda: R.rasterize_bwd_cuda(*bargs), reps),
-        "plain_ms": time_ms(torch, lambda: R.rasterize_bwd_plain(*bargs), 2, 1),
-        "bound_ms": b, "bound_by": by, "library_ms": None,
     }
+    if timed:
+        bwd_bytes = (table.numel() * 4 + m * 4 + (tx * ty + 1) * 4 + 9 * w * h * 4
+                     + m * 9 * 4)
+        b, by = _bound(bwd_bytes, _pair_ops(pairs, "bwd"))
+        out["rasterize_bwd"].update(
+            pairs=pairs["bwd"], walk=walked["bwd"],
+            ms=time_ms(torch, lambda: R.rasterize_bwd_cuda(*bargs), reps),
+            plain_ms=time_ms(torch, lambda: R.rasterize_bwd_plain(*bargs), 2, 1),
+            bound_ms=b, bound_by=by, library_ms=None)
 
     # kernel 3 on the rows in sorted order, as the main path gathers them
     ids_sorted, perm = torch.sort(isect.gauss_ids, stable=True)
@@ -422,21 +432,23 @@ def kernel_checks(torch, n=None, w=None, h=None, reps=10, scene=None):
     err_seg = (sk - sp).abs().max().item()
     rel_seg = err_seg / max(sp.abs().max().item(), 1e-30)
     check(rel_seg <= TOL["segreduce_rel"], f"segreduce rel err {rel_seg}")
-    ids_long = ids_sorted.long()
-    b, by = _bound(m * 4 + m * 36 + ng * 36, 0)
     out["segreduce"] = {
         "max_abs_err": err_seg, "rel_err": rel_seg, "tol": TOL["segreduce_rel"],
-        "deterministic": True,
-        "ms": time_ms(torch, seg, reps),
-        "plain_ms": time_ms(torch, lambda: segreduce.segment_reduce_plain(
-            ids_sorted, rows_sorted, ng), reps),
-        "library_ms": time_ms(torch, lambda: torch.zeros(
-            ng, 9, device=rows_sorted.device).index_add_(0, ids_long, rows_sorted),
-            reps),
-        "bound_ms": b, "bound_by": by,
-        # the main path's gather of the rows into sorted order, in torch
-        "gather_ms": time_ms(torch, lambda: rk[perm].contiguous(), reps),
+        "deterministic": True, "n": ng,
     }
+    if timed:
+        ids_long = ids_sorted.long()
+        b, by = _bound(m * 4 + m * 36 + ng * 36, 0)
+        out["segreduce"].update(
+            ms=time_ms(torch, seg, reps),
+            plain_ms=time_ms(torch, lambda: segreduce.segment_reduce_plain(
+                ids_sorted, rows_sorted, ng), reps),
+            library_ms=time_ms(torch, lambda: torch.zeros(
+                ng, 9, device=rows_sorted.device).index_add_(0, ids_long, rows_sorted),
+                reps),
+            bound_ms=b, bound_by=by,
+            # the main path's gather of the rows into sorted order, in torch
+            gather_ms=time_ms(torch, lambda: rk[perm].contiguous(), reps))
     return out
 
 
@@ -604,6 +616,14 @@ def full_width(torch):
     }
 
 
+# gradient thresholds of the cli phase's densification probe
+PROBE_THRESHOLDS = (5e-8, 1e-7, 2e-7, 5e-7, 1e-6, 2e-6, 5e-6, 1e-5, 1e-4, 2e-4)
+# the --enable_timer spans that run inside the end2end timer (eval, save and
+# checkpoint pause it)
+SPANS_IN_END2END = ("data_next", "train_step", "log", "count_densify",
+                    "grow_capacity", "densify", "reset_opacity")
+
+
 # The cli phase: the bench scene as a COLMAP scene on disk, trained through
 # the CLI with synthetic_colmap.FULL_TRAIN_ARGS (its densification threshold
 # makes the model outgrow its first capacity; PERF.md §4).
@@ -661,10 +681,65 @@ def fill_regrow_check(torch):
     return {"n_and_flag_words": sizes, "exact": True}
 
 
+def _flag(args, name):
+    return args[args.index(name) + 1]
+
+
+def densify_probe(torch, scene, work):
+    """Rows `count_densify` gives at each gradient threshold on the state
+    that the cli run's first densification round sees: FULL_TRAIN_ARGS run
+    to that round with densification deferred (its statistics still
+    accumulate) and no eval. This is how FULL_TRAIN_ARGS got its
+    --densify_grad_threshold."""
+    from clm_gs_tpu_torch.config import parse_config
+    from clm_gs_tpu_torch.data.readers import read_colmap_scene
+    from clm_gs_tpu_torch.models.densify import count_densify
+    from clm_gs_tpu_torch.train import main as train_main
+    from clm_gs_tpu_torch.utils.synthetic_colmap import FULL_TRAIN_ARGS
+
+    start = int(_flag(FULL_TRAIN_ARGS, "--densify_from_iter"))
+    every = int(_flag(FULL_TRAIN_ARGS, "--densification_interval"))
+    first = (start // every + 1) * every
+    never = str(10**9)
+    argv = (["-s", scene, "-m", f"{work}/probe", "--decode_dataset_path",
+             f"{work}/decoded", "--quiet", "--do_not_save"] + FULL_TRAIN_ARGS
+            + ["--iterations", str(first), "--densify_from_iter", never,
+               "--densify_until_iter", never, "--test_iterations", never])
+    cfg = parse_config(argv)
+    extent = read_colmap_scene(scene, eval_split=True, llffhold=cfg.aux.llffhold
+                               ).nerf_normalization["radius"]
+    state, _ = train_main(argv)
+    return {"iteration": first, "gaussians": state.n_alive, "extent": extent,
+            "new_rows": {str(t): count_densify(state, t, cfg.opt.percent_dense, extent)
+                         for t in PROBE_THRESHOLDS}}
+
+
+def final_state_checks(torch, state, scene, decoded):
+    """Each kernel against its plain version at the shapes the end of the
+    cli run gives it: the final state (segment reduce's n is its capacity)
+    seen by the first train camera, against that camera's ground truth."""
+    from clm_gs_tpu_torch.data.cameras import stack_cameras
+    from clm_gs_tpu_torch.data.dataset import load_raw_image
+    from clm_gs_tpu_torch.data.readers import read_colmap_scene
+    from clm_gs_tpu_torch.utils.synthetic_colmap import FULL_TRAIN_ARGS
+
+    llffhold = int(_flag(FULL_TRAIN_ARGS, "--llffhold"))
+    cam = read_colmap_scene(scene, eval_split=True, llffhold=llffhold).train_cameras[0]
+    dev = state.params.xyz.device
+    gt = torch.from_numpy(load_raw_image(decoded, cam.image_name, cam.width,
+                                         cam.height)).to(dev).float()[None] / 255.0
+    bg = torch.zeros(3, device=dev)
+    out = kernel_checks(torch, scene=(state, stack_cameras([cam], device=dev), gt, bg),
+                        timed=False)
+    out["shape"]["camera"] = cam.image_name
+    return out
+
+
 def cli_run(torch):
     """`main` of clm_gs_tpu_torch.train on the full synthetic scene (launch
-    counts over the run), then `python -m clm_gs_tpu_torch.train` resuming
-    from its checkpoint; checks the run's log, PLY and log2csv."""
+    counts over the run), each kernel against its plain version on the
+    final state, then `python -m clm_gs_tpu_torch.train` resuming from its
+    checkpoint; checks the run's log, PLY and log2csv."""
     import tempfile
     from pathlib import Path
 
@@ -678,6 +753,10 @@ def cli_run(torch):
         t0 = time.perf_counter()
         scene = make_dataset(f"{work}/scene", full=True)
         scene_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        probe = densify_probe(torch, scene, work)
+        probe["s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
         out = f"{work}/run"
         argv = ["-s", scene, "-m", out, "--decode_dataset_path",
                 f"{work}/decoded", "--quiet"] + FULL_TRAIN_ARGS
@@ -703,7 +782,11 @@ def cli_run(torch):
                                     getattr(state.params, f)[alive])
                         for f in ("xyz", "opacity", "log_scale", "quat", "sh"))
         n_end = state.n_alive
-        del state, back, alive
+        del back, alive
+        t0 = time.perf_counter()
+        final = final_state_checks(torch, state, scene, f"{work}/decoded")
+        final["s"] = time.perf_counter() - t0
+        del state
         torch.cuda.empty_cache()
         l2c = subprocess.run(
             [sys.executable, str(root / "release_scripts" / "log2csv.py"), out,
@@ -731,8 +814,8 @@ def cli_run(torch):
     steps = log["timers"].get("train_step", (0.0, 0))[1]
     tm = {k: v[0] / max(v[1], 1) for k, v in log["timers"].items()}
     e2e_s, it_s = log["end2end"] or (float("nan"), float("nan"))
-    loop_ms = sum(log["timers"].get(k, (0.0, 0))[0]
-                  for k in ("train_step", "data_next", "densify"))
+    timer_ms = lambda keys: sum(log["timers"].get(k, (0.0, 0))[0] for k in keys)
+    loop_ms = timer_ms(("train_step", "data_next", "densify"))
     result = {
         "phase": "cli", "args": FULL_TRAIN_ARGS,
         "width": 1237, "height": 822, "scene_s": scene_s, "run_s": run_s,
@@ -742,7 +825,17 @@ def cli_run(torch):
         "test_psnr": log["test_psnr"], "losses": log["losses"], "n3dgs": log["n3dgs"],
         "end2end_s": e2e_s, "it_per_s": it_s, "steps": steps,
         "timer_mean_ms": tm, "timer_sum_ms": {k: v[0] for k, v in log["timers"].items()},
+        "timer_calls": {k: v[1] for k, v in log["timers"].items()},
         "host_ms_per_step": (e2e_s * 1e3 - loop_ms) / max(steps, 1),
+        # end2end less every timer span inside it: the LR tensor, the
+        # loss read and the schedule
+        "remainder_ms_per_step": (e2e_s * 1e3 - timer_ms(SPANS_IN_END2END))
+        / max(steps, 1),
+        "densify_probe": probe,
+        "final_state_kernels": {
+            "shape": final["shape"], "s": final["s"],
+            **{k: {f: final[k][f] for f in ("max_abs_err", "rel_err", "tol", "n")
+                   if f in final[k]} for k in KERNELS}},
         "peak_device_bytes": peak, "launches": launches,
         "fill_flag_words": [flags_before, flags_after],
         "fill_regrow": fill_regrow_check(torch),

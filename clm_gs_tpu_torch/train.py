@@ -170,7 +170,9 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
 
         timers.start("data_next")
         cams, gt, b_idxs = dataset.next_batch()
+        timers.start("stack_cameras")
         cb = stack_cameras(cams, device=device)
+        timers.stop("stack_cameras", sync=cb.viewmats)
         if gt_cache is not None:
             idx = torch.tensor(b_idxs, dtype=torch.int64, device=device)
             gt = gt_cache[idx].float() / 255.0
@@ -196,6 +198,7 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
         loss = float(out.losses.mean())
         ema_loss = loss if ema_loss is None else 0.6 * ema_loss + 0.4 * loss
         if (iteration - 1) % cfg.aux.log_interval < bsz:
+            timers.start("log")
             logger.write(
                 f"iteration[{iteration},{iteration+bsz}) loss: {loss:.6f} "
                 f"ema: {ema_loss:.6f} n3dgs: {state.n_alive}\n")
@@ -207,6 +210,7 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
                 if cur != frozen_param_sum:
                     raise RuntimeError(
                         f"stop_update_param violated: {cur} != {frozen_param_sum}")
+            timers.stop("log")
 
         # ---- eval ----
         if any(check_update_at_this_iter(iteration, bsz, ti, 0) or iteration == ti
@@ -227,14 +231,18 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
                                  "densification; it is a debugging flag")
             if iteration > cfg.opt.densify_from_iter and check_update_at_this_iter(
                     iteration, bsz, cfg.opt.densification_interval, 0):
+                timers.start("count_densify")
                 n_new = Dn.count_densify(state, cfg.opt.densify_grad_threshold,
                                          cfg.opt.percent_dense, spatial)
+                timers.stop("count_densify")
                 needed = state.n_alive + n_new
                 if needed > 0.92 * state.capacity:
                     new_cap = next_capacity(needed, cfg.tpu.capacity_granule)
                     logger.write(f"capacity {state.capacity} -> {new_cap}\n")
+                    timers.start("grow_capacity")
                     state = G.grow_capacity(state, new_cap)
                     opt_state = _grow_opt(opt_state, new_cap)
+                    timers.stop("grow_capacity", sync=opt_state.nu.xyz)
                 size_prune = iteration > cfg.opt.opacity_reset_interval
                 timers.start("densify")
                 state, opt_state, info = Dn.densify_and_prune(
@@ -242,11 +250,15 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
                     cfg.opt.min_opacity, spatial, cfg.opt.percent_dense, size_prune,
                 )
                 timers.stop("densify", sync=state.params.xyz)
+                timers.start("log")
                 logger.densify_report(iteration, iteration + bsz, info.n_alive,
                                       _device_gb(device), _host_gb())
+                timers.stop("log")
             if check_update_at_this_iter(iteration, bsz,
                                          cfg.opt.opacity_reset_interval, 0):
+                timers.start("reset_opacity")
                 state, opt_state = Dn.reset_opacity(state, opt_state)
+                timers.stop("reset_opacity", sync=state.params.opacity)
                 logger.write(f"iteration[{iteration},{iteration+bsz}) reset_opacity\n")
 
         # ---- save / checkpoint ----
@@ -254,14 +266,18 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
                      if iteration <= s < iteration + bsz]
         if save_hits and not cfg.debug.do_not_save:
             e2e.pause(sync=out.losses)
+            timers.start("save")
             scene.gaussians = state
             scene.save(save_hits[-1], logger)
+            timers.stop("save")
             logger.write(f"[ITER {iteration}] Saving Gaussians\n")
             e2e.start()
         if any(iteration <= c < iteration + bsz for c in cfg.aux.checkpoint_iterations):
             e2e.pause(sync=out.losses)
+            timers.start("checkpoint")
             save_checkpoint(cfg.model.model_path, iteration + bsz, state,
                             opt_state, generator)
+            timers.stop("checkpoint")
             logger.write(f"[ITER {iteration}] Saving Checkpoint\n")
             e2e.start()
 

@@ -438,6 +438,29 @@ def test_opacity_reset_mid_run(scene, tmp_path):
     assert evals and all(np.isfinite(e["psnr"]) for e in evals)
 
 
+@pytest.mark.parametrize("enabled", [True, False])
+def test_timer_spans(scene, tmp_path, enabled):
+    """--enable_timer reports one span per call of the loop, so that a run's
+    time splits by them (chip_smoke.py's cli phase); without it, none. The
+    run grows past a small first capacity, resets opacity, evaluates, saves
+    and checkpoints once each."""
+    out = str(tmp_path / "timed")
+    tmain(_argv(scene, out, extra=[
+        "--opacity_reset_interval", "8", "--checkpoint_iterations", "4",
+        "--prealloc_capacity", "130"] + (["--enable_timer"] if enabled else [])),
+        device="cpu")
+    log = _log(out)
+    spans = {ln.split(": sum ")[0]: int(ln.split(" ms over ")[1].split()[0])
+             for ln in log.splitlines() if ": sum " in ln and " ms over " in ln}
+    assert "capacity 130 -> " in log and "end2end total_time:" in log
+    if not enabled:
+        assert spans == {}
+        return
+    assert spans == {"data_next": 3, "stack_cameras": 3, "train_step": 3, "log": 4,
+                     "eval": 1, "count_densify": 1, "grow_capacity": 1, "densify": 1,
+                     "reset_opacity": 1, "save": 1, "checkpoint": 1}
+
+
 @pytest.mark.parametrize("strategy", ["naive_offload", "clm_offload", None])
 def test_strategies_not_ported_raise(scene, tmp_path, strategy):
     argv = ["-s", scene, "-m", str(tmp_path / "x")] + (
