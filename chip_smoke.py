@@ -21,7 +21,15 @@ Phases, one JSON line each:
      compositing kernel reports the (instance, pixel) slots its block shapes
      walk. At the mid size, fill is also held exactly to its plain version
      on channels whose only valid slot is the first, with n % 4 == 3.
-  6. cli: the bench scene's 1M Gaussians written as a COLMAP scene (32
+  6. naive_step, on phase 4's scene: from one state with the same seeded
+     moments on the card and on the host, one naive_offload.train_one_batch
+     (parameters and moments on the host, the host Adam of
+     csrc/host/cpu_adam.cpp, built by g++ in phase 1) against one
+     no_offload.train_step: losses and parameter moves, the times, the
+     naive.grads / naive.d2h_adam split, and the device memory left after
+     the batch, which must be below the parameters' bytes (the device copy
+     was freed).
+  7. cli: the bench scene's 1M Gaussians written as a COLMAP scene (32
      cameras of 1237x822, utils/synthetic_colmap.py). A short run to the
      first densification round reports the rows each gradient threshold
      would add there. Then the CLI's main trains the scene with
@@ -33,7 +41,14 @@ Phases, one JSON line each:
      capacity). Then `python -m clm_gs_tpu_torch.train` resumes from the
      checkpoint. Checks the losses, the growth, the PSNR, the PLY against
      the final state, release_scripts/log2csv.py on the run, the resume,
-     and the fill after its flags regrow. The kernels line follows it.
+     and the fill after its flags regrow.
+  8. naive: the CLI's main with FULL_TRAIN_ARGS under --naive_offload on
+     phase 7's scene and decoded images: growth past the first capacity, an
+     opacity reset, a final test PSNR within 0.5 dB of phase 7's, the PLY,
+     each kernel's launches, a device peak below phase 7's; then a resume
+     from its checkpoint with `python -m clm_gs_tpu_torch.train
+     --naive_offload`, which restores the host moments from
+     strategy_extra.npz. The kernels line follows it.
 Any failed check exits 1. The last line is the device summary. Without CUDA,
 or without the package beside it, the script exits 1 and prints no result.
 """
@@ -45,6 +60,7 @@ import csv
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s outside
@@ -93,6 +109,8 @@ TOL = {
     # gradients (first moments) relative to their largest value
     "loss_rel": 1e-4,
     "step_rel": 1e-3,
+    # naive_offload's CLI run against no_offload's: final test PSNR (dB)
+    "naive_psnr_db": 0.5,
 }
 
 
@@ -172,13 +190,18 @@ def run(torch, report):
     t0 = time.perf_counter()
     ptxas = _build.build()
     build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _build.host_library("cpu_adam")
+    host_build_s = time.perf_counter() - t0
     regs = {k: [ln.strip() for ln in v.splitlines() if "Used" in ln]
             for k, v in ptxas.items()}
     report["device"] = {"phase": "device", "nvidia_smi": smi,
                         "name": torch.cuda.get_device_name(0),
-                        "build_s": build_s, "ptxas": regs}
+                        "build_s": build_s, "host_build_s": host_build_s,
+                        "ptxas": regs}
     emit({"phase": "device", "build_s": round(build_s, 3),
-          "built": sorted(ptxas)})
+          "built": sorted(ptxas), "host_build_s": round(host_build_s, 3),
+          "host_built": ["cpu_adam"]})
 
     # 2. kernels against plain versions at a mid size, and against the oracle
     mid = kernel_checks(torch, n=20_000, w=640, h=480, reps=5)
@@ -191,24 +214,42 @@ def run(torch, report):
     emit(report["train_step_mid"])
 
     # 4. full width
-    scene, report["full"] = full_width(torch)
+    scene, report["full"], step_args = full_width(torch)
     emit(report["full"])
 
     # 5. kernels at the full-width shapes
     full = kernel_checks(torch, reps=10, scene=scene)
     report["kernels_full"] = full
+
+    # 6. naive_offload's batch on the same scene, which it takes over
+    box = [scene]
     del scene
+    report["naive_step"] = naive_step(torch, box, *step_args)
+    emit(report["naive_step"])
     torch.cuda.empty_cache()
 
-    # 6. the training CLI on a synthetic COLMAP scene at full width
-    report["cli"] = cli_run(torch)
-    emit(report["cli"])
+    # 7. and 8. the training CLI under no_offload and naive_offload on one
+    # synthetic COLMAP scene at full width, written and decoded once
+    from clm_gs_tpu_torch.utils.synthetic_colmap import make_dataset
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as work:
+        t0 = time.perf_counter()
+        colmap = make_dataset(f"{work}/scene", full=True)
+        scene_s = time.perf_counter() - t0
+        report["cli"] = cli_run(torch, work, colmap)
+        report["cli"]["scene_s"] = scene_s
+        emit(report["cli"])
+        torch.cuda.empty_cache()
+        report["naive"] = naive_cli_run(torch, work, colmap, report["cli"])
+        emit(report["naive"])
 
     launches = report["full"]["launches"]
     emit({"kernels": [
         {"name": k, "status": "ported", "route": "cuda", "source": KERNELS[k][0],
          "replaces": KERNELS[k][1], "launches": launches.get(k, 0),
          "cli_launches": report["cli"]["launches"].get(k, 0),
+         "naive_step_launches": report["naive_step"]["launches"].get(k, 0),
+         "naive_launches": report["naive"]["launches"].get(k, 0),
          "max_abs_err": full[k]["max_abs_err"], "ms": full[k]["ms"],
          "plain_ms": full[k]["plain_ms"], "bound_ms": full[k]["bound_ms"],
          "bound_by": full[k]["bound_by"], "library_ms": full[k]["library_ms"]}
@@ -613,7 +654,7 @@ def full_width(torch):
         "mpix_per_s": bsz * w * h / mean_s / 1e6, "losses": losses,
         "n_isects": n_isects, "max_memory_allocated": peak,
         "launches": launches,
-    }
+    }, (lrs, cfg)
 
 
 # gradient thresholds of the cli phase's densification probe
@@ -735,80 +776,75 @@ def final_state_checks(torch, state, scene, decoded):
     return out
 
 
-def cli_run(torch):
-    """`main` of clm_gs_tpu_torch.train on the full synthetic scene (launch
-    counts over the run), each kernel against its plain version on the
-    final state, then `python -m clm_gs_tpu_torch.train` resuming from its
-    checkpoint; checks the run's log, PLY and log2csv."""
-    import tempfile
+def cli_run(torch, work, scene):
+    """`main` of clm_gs_tpu_torch.train on the full synthetic scene in
+    `work` (launch counts over the run), each kernel against its plain
+    version on the final state, then `python -m clm_gs_tpu_torch.train`
+    resuming from its checkpoint; checks the run's log, PLY and log2csv."""
     from pathlib import Path
 
     from clm_gs_tpu_torch import _build
     from clm_gs_tpu_torch.models import gaussians as G
     from clm_gs_tpu_torch.train import main as train_main
-    from clm_gs_tpu_torch.utils.synthetic_colmap import FULL_TRAIN_ARGS, make_dataset
+    from clm_gs_tpu_torch.utils.synthetic_colmap import FULL_TRAIN_ARGS
 
     root = Path(__file__).resolve().parent
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as work:
-        t0 = time.perf_counter()
-        scene = make_dataset(f"{work}/scene", full=True)
-        scene_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        probe = densify_probe(torch, scene, work)
-        probe["s"] = time.perf_counter() - t0
-        torch.cuda.empty_cache()
-        out = f"{work}/run"
-        argv = ["-s", scene, "-m", out, "--decode_dataset_path",
-                f"{work}/decoded", "--quiet"] + FULL_TRAIN_ARGS
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        flags_before = _fill_flag_words(torch)
-        _build.reset_launches()
-        t0 = time.perf_counter()
-        state, _ = train_main(argv)
-        run_s = time.perf_counter() - t0
-        launches = dict(_build.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated()
-        flags_after = _fill_flag_words(torch)
-        log = _parse_log(Path(out, "python.log").read_text())
+    t0 = time.perf_counter()
+    probe = densify_probe(torch, scene, work)
+    probe["s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    out = f"{work}/run"
+    argv = ["-s", scene, "-m", out, "--decode_dataset_path",
+            f"{work}/decoded", "--quiet"] + FULL_TRAIN_ARGS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flags_before = _fill_flag_words(torch)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    state, _ = train_main(argv)
+    run_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    flags_after = _fill_flag_words(torch)
+    log = _parse_log(Path(out, "python.log").read_text())
 
-        ply = Path(out, "point_cloud", "iteration_200", "point_cloud.ply")
-        with open(ply, "rb") as f:
-            head = f.read(4096).decode("ascii", errors="replace")
-        ply_rows = int(head.split("element vertex ")[1].split()[0])
-        alive = state.alive
-        back = G.load_ply(str(ply), device=state.params.xyz.device)
-        ply_equal = all(torch.equal(getattr(back.params, f)[back.alive],
-                                    getattr(state.params, f)[alive])
-                        for f in ("xyz", "opacity", "log_scale", "quat", "sh"))
-        n_end = state.n_alive
-        del back, alive
-        t0 = time.perf_counter()
-        final = final_state_checks(torch, state, scene, f"{work}/decoded")
-        final["s"] = time.perf_counter() - t0
-        del state
-        torch.cuda.empty_cache()
-        l2c = subprocess.run(
-            [sys.executable, str(root / "release_scripts" / "log2csv.py"), out,
-             "-o", f"{work}/r.csv"], capture_output=True, text=True, check=False,
-            timeout=120)
-        csv_rows = []
-        if l2c.returncode == 0:
-            with open(f"{work}/r.csv", newline="") as f:
-                csv_rows = list(csv.DictReader(f))
+    ply = Path(out, "point_cloud", "iteration_200", "point_cloud.ply")
+    with open(ply, "rb") as f:
+        head = f.read(4096).decode("ascii", errors="replace")
+    ply_rows = int(head.split("element vertex ")[1].split()[0])
+    alive = state.alive
+    back = G.load_ply(str(ply), device=state.params.xyz.device)
+    ply_equal = all(torch.equal(getattr(back.params, f)[back.alive],
+                                getattr(state.params, f)[alive])
+                    for f in ("xyz", "opacity", "log_scale", "quat", "sh"))
+    n_end = state.n_alive
+    del back, alive
+    t0 = time.perf_counter()
+    final = final_state_checks(torch, state, scene, f"{work}/decoded")
+    final["s"] = time.perf_counter() - t0
+    del state
+    torch.cuda.empty_cache()
+    l2c = subprocess.run(
+        [sys.executable, str(root / "release_scripts" / "log2csv.py"), out,
+         "-o", f"{work}/r.csv"], capture_output=True, text=True, check=False,
+        timeout=120)
+    csv_rows = []
+    if l2c.returncode == 0:
+        with open(f"{work}/r.csv", newline="") as f:
+            csv_rows = list(csv.DictReader(f))
 
-        ckpt = Path(out, "checkpoints", "101")
-        out2 = f"{work}/resume"
-        t0 = time.perf_counter()
-        res = subprocess.run(
-            [sys.executable, "-m", "clm_gs_tpu_torch.train", "-s", scene, "-m", out2,
-             "--decode_dataset_path", f"{work}/decoded", "--quiet",
-             "--start_checkpoint", str(ckpt), "--do_not_save"]
-            + [a for a in FULL_TRAIN_ARGS if a != "--enable_timer"],
-            cwd=root, capture_output=True, text=True, check=False, timeout=600)
-        resume_s = time.perf_counter() - t0
-        log2_text = (Path(out2, "python.log").read_text()
-                     if Path(out2, "python.log").exists() else "")
+    ckpt = Path(out, "checkpoints", "101")
+    out2 = f"{work}/resume"
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "clm_gs_tpu_torch.train", "-s", scene, "-m", out2,
+         "--decode_dataset_path", f"{work}/decoded", "--quiet",
+         "--start_checkpoint", str(ckpt), "--do_not_save"]
+        + [a for a in FULL_TRAIN_ARGS if a != "--enable_timer"],
+        cwd=root, capture_output=True, text=True, check=False, timeout=600)
+    resume_s = time.perf_counter() - t0
+    log2_text = (Path(out2, "python.log").read_text()
+                 if Path(out2, "python.log").exists() else "")
     log2 = _parse_log(log2_text)
 
     steps = log["timers"].get("train_step", (0.0, 0))[1]
@@ -818,7 +854,7 @@ def cli_run(torch):
     loop_ms = timer_ms(("train_step", "data_next", "densify"))
     result = {
         "phase": "cli", "args": FULL_TRAIN_ARGS,
-        "width": 1237, "height": 822, "scene_s": scene_s, "run_s": run_s,
+        "width": 1237, "height": 822, "run_s": run_s,
         "gaussians_start": log.get("initialized"), "gaussians_end": n_end,
         "capacity_growths": log["capacity"], "densify_rounds": len(log["densify"]),
         "densify_counts": log["densify"], "resets": log["resets"],
@@ -865,6 +901,210 @@ def cli_run(torch):
     check(res.returncode == 0 and result["resume"]["resumed"]
           and last.startswith("end2end total_time:"),
           f"cli: the resumed call failed (rc {res.returncode}): {last}")
+    return result
+
+
+# float32 columns of a Gaussian's parameters: xyz 3, opacity 1, log_scale 3,
+# quat 4, sh 48; naive_offload moves them up and their gradients down once
+# a batch
+PARAM_COLS = 59
+
+
+def naive_step(torch, box, lrs, adam_cfg):
+    """Phase 4's scene, popped from `box` so that its device parameters can
+    be freed, through one no_offload.train_step and one
+    naive_offload.train_one_batch from the same parameters and the same
+    seeded moments (on the card for the one, on the host for the other)."""
+    from clm_gs_tpu_torch import _build
+    from clm_gs_tpu_torch.config import Config, init_config
+    from clm_gs_tpu_torch.strategies import naive_offload as naive
+    from clm_gs_tpu_torch.strategies.no_offload import train_step
+    from clm_gs_tpu_torch.utils.native import host_threads
+    from clm_gs_tpu_torch.utils.timer import Timer
+
+    state, cb, gts, bg = box.pop()
+    w, h, C = cb.width, cb.height, state.capacity
+    dev = state.alive.device
+    cfg = Config()
+    cfg.aux.naive_offload = True
+    init_config(cfg)
+    opt = _seeded_moments(torch, state.params, dev)
+    ctx = naive.make_context(cfg, state, adam_cfg)
+    for f, cols in naive.GROUP_COLS.items():
+        ctx.adams[f].exp_avg = getattr(opt.mu, f).reshape(C, cols).cpu()
+        ctx.adams[f].exp_avg_sq = getattr(opt.nu, f).reshape(C, cols).cpu()
+        ctx.adams[f].step_count = int(opt.steps)
+    p0 = {f: t.clone() for f, t in ctx.params_host.items()}
+    mu0 = {f: a.exp_avg.clone() for f, a in ctx.adams.items()}
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_no, o_no, out_no = train_step(state, opt, cb, gts, 3, lrs, adam_cfg, bg, w, h)
+    losses_no = out_no.losses.cpu()
+    no_offload_s = time.perf_counter() - t0
+    moves_no = {f: (getattr(s_no.params, f) - getattr(state.params, f)).reshape(
+        C, cols).cpu() for f, cols in naive.GROUP_COLS.items()}
+    mu_no = {f: getattr(o_no.mu, f).reshape(C, cols).cpu()
+             for f, cols in naive.GROUP_COLS.items()}
+    del s_no, o_no, out_no, opt
+
+    # the device copy of the parameters goes: the host buffers hold them
+    state = naive.strip_device_params(state)
+    host_lrs = {k: v.cpu() for k, v in lrs.items()}
+    timers = Timer(enabled=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    state, _, ctx, out = naive.train_one_batch(
+        state, None, ctx, cb, gts, 3, host_lrs, adam_cfg, bg, w, h, cfg, timers=timers)
+    losses = out.losses.cpu()
+    naive_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    after = torch.cuda.memory_allocated()
+    peak = torch.cuda.max_memory_allocated()
+
+    loss_rel = ((losses - losses_no).abs() / losses_no.abs()).max().item()
+    # The two Adams order their float32 operations differently, so an
+    # update that differs in its last bits can round p - update to the
+    # neighbouring float: moves may differ by one unit in the last place of
+    # the parameter beyond TOL["step_rel"] of the group's largest move. The
+    # first moments hold the gradients without that rounding.
+    step_rel, ulp_rel, grad_rel = {}, {}, {}
+    for f, d in moves_no.items():
+        diff = (ctx.params_host[f] - p0[f] - d).abs()
+        big = torch.maximum(p0[f].abs(), ctx.params_host[f].abs())
+        ulp = torch.nextafter(big, torch.full_like(big, float("inf"))) - big
+        scale = d.abs().max().clamp_min(1e-30)
+        step_rel[f] = (diff.max() / scale).item()
+        ulp_rel[f] = ((diff - ulp).clamp_min(0).max() / scale).item()
+        g_scale = (mu_no[f] - 0.9 * mu0[f]).abs().max().clamp_min(1e-30)
+        grad_rel[f] = ((ctx.adams[f].exp_avg - mu_no[f]).abs().max() / g_scale).item()
+    param_bytes = PARAM_COLS * 4 * C
+    result = {
+        "phase": "naive_step", "gaussians": state.n_alive, "capacity": C,
+        "cameras": gts.shape[0], "width": w, "height": h,
+        "losses": losses.tolist(), "no_offload_losses": losses_no.tolist(),
+        "loss_rel_err": loss_rel, "param_step_rel_err": step_rel,
+        "param_step_rel_err_past_one_ulp": ulp_rel, "grad_rel_err": grad_rel,
+        "tol": [TOL["loss_rel"], TOL["step_rel"]],
+        "naive_s": naive_s, "no_offload_s": no_offload_s,
+        "span_ms": {k: timers.sums[k] * 1e3 for k in ("naive.grads", "naive.d2h_adam")},
+        "bytes_h2d": param_bytes, "bytes_d2h": param_bytes,
+        "host_threads": host_threads(), "param_bytes": param_bytes,
+        "memory_allocated_before": before, "memory_allocated_after": after,
+        "max_memory_allocated": peak, "launches": launches,
+    }
+    check(bool(torch.isfinite(losses).all()) and loss_rel <= TOL["loss_rel"]
+          and max(ulp_rel.values()) <= TOL["step_rel"]
+          and max(grad_rel.values()) <= TOL["step_rel"],
+          f"naive_step against no_offload: loss {loss_rel}, steps past one ulp "
+          f"{ulp_rel}, first moments {grad_rel}")
+    check(after < param_bytes,
+          f"naive_step: {after} bytes on the card after the batch, the parameters "
+          f"take {param_bytes}")
+    check(all(launches.get(k, 0) > 0 for k in KERNELS),
+          f"naive_step: a kernel of the path never launched: {launches}")
+    return result
+
+
+def naive_cli_run(torch, work, scene, cli):
+    """`main` of clm_gs_tpu_torch.train under --naive_offload on the scene
+    and decoded images of phase 7 in `work` (launch counts over the run),
+    then `python -m clm_gs_tpu_torch.train --naive_offload` resuming from its
+    checkpoint to iteration 120; checked against phase 7's result `cli`."""
+    from pathlib import Path
+
+    from clm_gs_tpu_torch import _build
+    from clm_gs_tpu_torch.models import gaussians as G
+    from clm_gs_tpu_torch.train import main as train_main
+    from clm_gs_tpu_torch.utils.native import host_threads
+    from clm_gs_tpu_torch.utils.synthetic_colmap import FULL_TRAIN_ARGS
+
+    root = Path(__file__).resolve().parent
+    args = [a for a in FULL_TRAIN_ARGS if a != "--no_offload"] + ["--naive_offload"]
+    out = f"{work}/naive"
+    argv = ["-s", scene, "-m", out, "--decode_dataset_path", f"{work}/decoded",
+            "--quiet"] + args
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    state, opt = train_main(argv)
+    run_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log = _parse_log(Path(out, "python.log").read_text())
+
+    ply = Path(out, "point_cloud", "iteration_200", "point_cloud.ply")
+    back = G.load_ply(str(ply), device=state.alive.device)
+    ply_equal = all(torch.equal(getattr(back.params, f)[back.alive],
+                                getattr(state.params, f)[state.alive])
+                    for f in ("xyz", "opacity", "log_scale", "quat", "sh"))
+    ply_rows, n_end, cap_end = back.n_alive, state.n_alive, state.capacity
+    del back, state
+    torch.cuda.empty_cache()
+
+    ckpt = Path(out, "checkpoints", "101")
+    extra_saved = Path(ckpt, "strategy_extra.npz").exists()
+    out2 = f"{work}/naive_resume"
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "clm_gs_tpu_torch.train", "-s", scene, "-m", out2,
+         "--decode_dataset_path", f"{work}/decoded", "--quiet",
+         "--start_checkpoint", str(ckpt), "--do_not_save"]
+        + [a for a in args if a != "--enable_timer"] + ["--iterations", "120"],
+        cwd=root, capture_output=True, text=True, check=False, timeout=600)
+    resume_s = time.perf_counter() - t0
+    log2_text = (Path(out2, "python.log").read_text()
+                 if Path(out2, "python.log").exists() else "")
+    log2 = _parse_log(log2_text)
+
+    steps = log["timers"].get("train_step", (0.0, 0))[1]
+    e2e_s, it_s = log["end2end"] or (float("nan"), float("nan"))
+    psnr_gap = ((log["test_psnr"] or [float("nan")])[-1] - cli["test_psnr"][-1])
+    result = {
+        "phase": "naive", "args": args, "run_s": run_s,
+        "gaussians_start": log.get("initialized"), "gaussians_end": n_end,
+        "cli_gaussians_end": cli["gaussians_end"], "capacity_end": cap_end,
+        "capacity_growths": log["capacity"], "densify_counts": log["densify"],
+        "resets": log["resets"], "test_psnr": log["test_psnr"],
+        "final_test_psnr_minus_cli": psnr_gap, "losses": log["losses"],
+        "n3dgs": log["n3dgs"], "end2end_s": e2e_s, "it_per_s": it_s,
+        "cli_it_per_s": cli["it_per_s"], "steps": steps,
+        "timer_mean_ms": {k: v[0] / max(v[1], 1) for k, v in log["timers"].items()},
+        "timer_calls": {k: v[1] for k, v in log["timers"].items()},
+        "bytes_each_way_per_batch_at_end": PARAM_COLS * 4 * cap_end,
+        "host_threads": host_threads(),
+        "peak_device_bytes": peak, "cli_peak_device_bytes": cli["peak_device_bytes"],
+        "launches": launches, "ply_rows": ply_rows, "ply_equal": ply_equal,
+        "resume": {"rc": res.returncode, "s": resume_s, "strategy_extra": extra_saved,
+                   "resumed": "Resumed from" in log2_text,
+                   "end2end": log2["end2end"], "test_psnr": log2["test_psnr"],
+                   "densify_counts": log2["densify"]},
+    }
+    if res.returncode != 0:
+        print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
+    finite = all(v == v and abs(v) != float("inf") for v in log["losses"])
+    check(finite and log["losses"] and opt is None, f"naive: losses {log['losses']}")
+    check(all(launches.get(k, 0) > 0 for k in KERNELS),
+          f"naive: a kernel of the path never launched: {launches}")
+    check(log["capacity"], "naive: the model never outgrew its first capacity")
+    check(log["resets"] >= 1, "naive: no reset_opacity line")
+    check(len(log["test_psnr"]) >= 2 and log["test_psnr"][-1] > log["test_psnr"][0]
+          and abs(psnr_gap) <= TOL["naive_psnr_db"],
+          f"naive: test PSNR {log['test_psnr']}, {psnr_gap} dB from the cli run's")
+    check(ply_rows == n_end == log["n3dgs"][-1] and ply_equal,
+          f"naive: PLY rows {ply_rows}, n_alive {n_end}, last n3dgs "
+          f"{log['n3dgs'][-1]}, equal {ply_equal}")
+    check(peak < cli["peak_device_bytes"],
+          f"naive: device peak {peak} not below the cli run's {cli['peak_device_bytes']}")
+    last = (log2_text.rstrip().splitlines() or [""])[-1]
+    check(res.returncode == 0 and result["resume"]["resumed"] and extra_saved
+          and last.startswith("end2end total_time:"),
+          f"naive: the resumed call failed (rc {res.returncode}, strategy_extra.npz "
+          f"{extra_saved}): {last}")
     return result
 
 

@@ -7,6 +7,11 @@ Pointers and the stream pass as ``c_void_p``; every C entry returns
 ``cudaGetLastError()`` and ``launch`` raises on a nonzero code.
 
 ``LAUNCHES`` counts, per kernel wrapper, the calls that launched its kernel.
+
+The host libraries (``csrc/host/<name>.cpp``: the SIMD host Adam and the
+camera-order TSP) are built the same way by ``g++`` with the JAX package's
+Makefile flags, need no CUDA, and are loaded by ``host_library``. A failed
+build raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+HOST_SRC = CSRC / "host"
+HOST_FLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-std=c++17", "-pthread"]
 
 LAUNCHES = collections.Counter()
 _libs: dict = {}
@@ -91,6 +98,36 @@ def build(names=KERNELS) -> dict:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return reports
+
+
+def build_host(name: str, src_dir: Path = HOST_SRC) -> Path:
+    """Compile `src_dir/<name>.cpp` into BUILD/lib<name>.so with g++ unless
+    the library is newer than its source; returns the library's path."""
+    src, so = src_dir / f"{name}.cpp", BUILD / f"lib{name}.so"
+    if so.exists() and so.stat().st_mtime >= src.stat().st_mtime:
+        return so
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if not cxx:
+        raise RuntimeError(f"no C++ compiler to build {src}: set CXX or install g++")
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD / f"lib{name}.{os.getpid()}.tmp.so"
+    res = subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp), str(src)],
+                         capture_output=True, text=True, check=False)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{cxx} failed for {src}:\n{res.stdout}{res.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The host library `name`, built if stale, loaded once per process."""
+    key = f"host:{name}"
+    with _lock:
+        lib = _libs.get(key)
+        if lib is None:
+            lib = _libs[key] = ctypes.CDLL(str(build_host(name)))
+        return lib
 
 
 def _entry(name: str, fn: str, argtypes: list):

@@ -2,9 +2,9 @@
 (clm_gs_tpu/strategies/no_offload.py:29-214).
 
 ``train_step`` is the reference's one-camera-at-a-time path (``G = 1``,
-no_offload.py:81-126): each camera runs render -> loss -> backward, the
-parameter gradients accumulate in ``.grad``, and after the loop they are
-divided by the batch size before (selective) Adam. ``eval_one_cam`` and
+no_offload.py:81-126): ``batch_grads`` runs each camera's render -> loss ->
+backward, the parameter gradients accumulate in ``.grad``, and after the
+loop they are divided by the batch size before (selective) Adam. ``eval_one_cam`` and
 ``eval_batch`` are the eval renders of the training loop (train.py).
 """
 
@@ -24,6 +24,69 @@ class StepOut(NamedTuple):
     max_isects: int
     visible_any: torch.Tensor  # (C,) bool
     n_isects: Tuple[int, ...] = ()  # per camera, as binned (port only)
+
+
+class BatchGrads(NamedTuple):
+    grads: GaussianParams  # summed over the batch's cameras
+    grad_norm_sum: torch.Tensor  # (C,) densification statistics to add
+    vis_count: torch.Tensor  # (C,)
+    visible_any: torch.Tensor  # (C,) bool
+    losses: torch.Tensor  # (bsz,)
+    n_isects: Tuple[int, ...]  # per camera, as binned
+
+
+def batch_grads(
+    params: GaussianParams,
+    alive: torch.Tensor,
+    cams,
+    gt_images,
+    sh_degree: int,
+    background,
+    width: int,
+    height: int,
+    accumulate_stats: bool = True,
+    lambda_dssim: float = 0.2,
+    loss_scale: float = 1.0,
+) -> BatchGrads:
+    """The camera loop of a step without the optimizer: each camera runs
+    render -> loss -> backward and the parameter gradients accumulate
+    (naive_offload.py:124-170 runs the same loop)."""
+    C = params.capacity
+    dev = params.xyz.device
+    leaf = GaussianParams(
+        *(t.detach().requires_grad_(True) for t in params.astuple())
+    )
+    losses = []
+    vis_any = torch.zeros(C, dtype=torch.bool, device=dev)
+    grad_norm_sum = torch.zeros(C, device=dev)
+    vis_count = torch.zeros(C, device=dev)
+    n_isects = []
+    half_wh = torch.tensor([width * 0.5, height * 0.5], device=dev)
+    for b in range(gt_images.shape[0]):
+        out = render_one_cam(
+            leaf, alive, cams.viewmats[b], cams.Ks[b], cams.camtoworlds[b, :3, 3],
+            sh_degree, width, height, background,
+        )
+        out.means2d.retain_grad()
+        loss = photometric_loss(out.image, gt_images[b], lambda_dssim, loss_scale)
+        loss.backward()
+        losses.append(loss.detach())
+        vis = out.radii > 0
+        vis_any |= vis
+        n_isects.append(out.n_isects)
+        if accumulate_stats:
+            g2d = out.means2d.grad
+            if g2d is None:
+                g2d = torch.zeros(C, 2, device=dev)
+            visf = vis.float()
+            grad_norm_sum += torch.linalg.norm(g2d * half_wh, dim=-1) * visf
+            vis_count += visf
+    grads = GaussianParams(
+        *(p.grad if p.grad is not None else torch.zeros_like(p)
+          for p in leaf.astuple())
+    )
+    return BatchGrads(grads, grad_norm_sum, vis_count, vis_any,
+                      torch.stack(losses), tuple(n_isects))
 
 
 def train_step(
@@ -47,48 +110,14 @@ def train_step(
     Returns (state, opt_state, StepOut)."""
     params = state.params
     alive = state.alive
-    C = params.capacity
-    dev = params.xyz.device
     bsz = gt_images.shape[0]
-    leaf = GaussianParams(
-        *(t.detach().requires_grad_(True) for t in params.astuple())
-    )
-    losses = []
-    vis_any = torch.zeros(C, dtype=torch.bool, device=dev)
-    grad_norm_sum = torch.zeros(C, device=dev)
-    vis_count = torch.zeros(C, device=dev)
-    n_isects = []
-    half_wh = torch.tensor([width * 0.5, height * 0.5], device=dev)
-    for b in range(bsz):
-        out = render_one_cam(
-            leaf, alive, cams.viewmats[b], cams.Ks[b], cams.camtoworlds[b, :3, 3],
-            sh_degree, width, height, background,
-        )
-        out.means2d.retain_grad()
-        loss = photometric_loss(out.image, gt_images[b], lambda_dssim, loss_scale)
-        loss.backward()
-        losses.append(loss.detach())
-        vis = out.radii > 0
-        vis_any |= vis
-        n_isects.append(out.n_isects)
-        if accumulate_stats:
-            g2d = out.means2d.grad
-            if g2d is None:
-                g2d = torch.zeros(C, 2, device=dev)
-            visf = vis.float()
-            grad_norm_sum += torch.linalg.norm(g2d * half_wh, dim=-1) * visf
-            vis_count += visf
-
-    grads = GaussianParams(
-        *(
-            (p.grad if p.grad is not None else torch.zeros_like(p)) / bsz
-            for p in leaf.astuple()
-        )
-    )
+    bg = batch_grads(params, alive, cams, gt_images, sh_degree, background,
+                     width, height, accumulate_stats, lambda_dssim, loss_scale)
     if stop_update_param:
         new_params, new_opt = params, opt_state
     else:
-        update_mask = (alive & vis_any) if sparse_adam else alive
+        grads = GaussianParams(*(g / bsz for g in bg.grads.astuple()))
+        update_mask = (alive & bg.visible_any) if sparse_adam else alive
         new_params, new_opt = adam_step(
             params, grads, opt_state, lrs, adam_cfg, update_mask
         )
@@ -96,12 +125,12 @@ def train_step(
         params=new_params,
         alive=alive,
         n_alive=state.n_alive,
-        xyz_grad_accum=state.xyz_grad_accum + grad_norm_sum,
-        denom=state.denom + vis_count,
+        xyz_grad_accum=state.xyz_grad_accum + bg.grad_norm_sum,
+        denom=state.denom + bg.vis_count,
         max_radii2d=state.max_radii2d,
     )
-    return new_state, new_opt, StepOut(torch.stack(losses), max(n_isects),
-                                       vis_any, tuple(n_isects))
+    return new_state, new_opt, StepOut(bg.losses, max(bg.n_isects),
+                                       bg.visible_any, bg.n_isects)
 
 
 @torch.no_grad()

@@ -1,15 +1,19 @@
 """Training CLI (clm_gs_tpu/train.py).
 
     python -m clm_gs_tpu_torch.train -s <scene> -m <out> --no_offload [flags]
+    python -m clm_gs_tpu_torch.train -s <scene> -m <out> --naive_offload [flags]
 
 The host-side loop of the JAX package with its flags and `python.log`
 grammar: LR schedules, the SH-degree ramp, eval, densification with capacity
 growth, opacity reset, PLY saves, checkpoints and resume. The device work is
-`strategies/no_offload.train_step` and the eval renders. The port sizes its
-instance buffers to each camera's true count, so the JAX package's
+`strategies/no_offload.train_step`, or `strategies/naive_offload.
+train_one_batch` with the parameters and moments on the host (the state is
+then stripped between batches and materialized for eval, densification,
+saves and checkpoints), and the eval renders. The port sizes its instance
+buffers to each camera's true count, so the JAX package's
 `isect_cap`/`vis_cap`/`gather_cap` adaptation has no counterpart here, and it
-runs on one device. `naive_offload` and `clm_offload` (the default strategy)
-are not ported yet and raise.
+runs on one device. `clm_offload` (the default strategy) is not ported yet
+and raises.
 
 `training` and `main` run on the card unless called with device="cpu".
 """
@@ -19,6 +23,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -31,7 +36,7 @@ from clm_gs_tpu_torch.models import gaussians as G
 from clm_gs_tpu_torch.optim import (AdamConfig, AdamState, init_adam,
                                     lr_batch_scale, sh_column_lr)
 from clm_gs_tpu_torch.scene import Scene
-from clm_gs_tpu_torch.strategies import no_offload
+from clm_gs_tpu_torch.strategies import naive_offload, no_offload
 from clm_gs_tpu_torch.utils.checkpoint import (latest_checkpoint,
                                                load_checkpoint, save_checkpoint)
 from clm_gs_tpu_torch.utils.general import (check_device,
@@ -41,10 +46,15 @@ from clm_gs_tpu_torch.utils.general import (check_device,
 from clm_gs_tpu_torch.utils.logger import RunLogger
 from clm_gs_tpu_torch.utils.timer import End2endTimer, Timer
 
+STRATEGIES = {"no_offload": no_offload, "naive_offload": naive_offload}
 
-def _grow_opt(opt: AdamState, new_cap: int) -> AdamState:
+
+def _grow_opt(opt: Optional[AdamState], new_cap: int) -> Optional[AdamState]:
     """Moments padded with zero rows to `new_cap`: new buffers, mu and nu
-    distinct."""
+    distinct. None (moments kept by the strategy) stays None; the JAX
+    package's training loop dereferences it there (train.py:517 -> :65)."""
+    if opt is None:
+        return None
 
     def pad(x):
         return torch.cat([x, x.new_zeros((new_cap - x.shape[0],) + x.shape[1:])])
@@ -71,11 +81,13 @@ def _host_gb() -> float:
 
 
 def training(cfg: Config, device="cuda"):
-    """Train per `cfg`; returns the final (state, opt_state)."""
-    if cfg.strategy != "no_offload":
+    """Train per `cfg`; returns the final (state, opt_state). Under
+    naive_offload the state's parameters are uploaded from the host copy and
+    opt_state is None (the moments were on the host)."""
+    if cfg.strategy not in STRATEGIES:
         raise NotImplementedError(
             f"the {cfg.strategy} strategy is not ported yet (ROADMAP.md, "
-            "modules to port); pass --no_offload")
+            "modules to port); pass --no_offload or --naive_offload")
     device = check_device(device)
     with contextlib.ExitStack() as closing:
         return _training(cfg, device, closing)
@@ -91,9 +103,14 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
     save_config(cfg, os.path.join(cfg.model.model_path, "args.json"))
     logger.write(f"config: {cfg}\n")
 
+    strategy_name = cfg.strategy
+    strategy = STRATEGIES[strategy_name]
+    naive = strategy_name == "naive_offload"
     scene = Scene(cfg, logger, device=device)
-    state = scene.gaussians
-    opt_state = init_adam(state.params)
+    # the loop owns the state; the scene holds it only while saving
+    state, scene.gaussians = scene.gaussians, None
+    # naive_offload keeps every moment on the host (HostAdam)
+    opt_state = None if naive else init_adam(state.params)
     generator = torch.Generator(device=device).manual_seed(cfg.debug.seed)
     start_iter = 1
 
@@ -122,15 +139,32 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
     lr_scale = lr_batch_scale(bsz, cfg.opt.lr_scale_mode)
     adam_cfg = AdamConfig().scaled(bsz, cfg.opt.lr_scale_mode)
 
-    def scalar(v):
-        return torch.tensor(v, dtype=torch.float32, device=device)
+    strategy_ctx = None
+    if naive:
+        opt_state = None
+        strategy_ctx = strategy.make_context(cfg, state, adam_cfg)
+        # a resized resume restarts the optimizer and changes the row count:
+        # the saved moments no longer apply
+        extra_path = os.path.join(ckpt, "strategy_extra.npz") if ckpt else ""
+        if (extra_path and os.path.exists(extra_path)
+                and cfg.debug.drop_duplicate_gaussians_coeff == 1.0):
+            with np.load(extra_path) as z:
+                strategy_ctx = strategy.restore_extra(strategy_ctx, dict(z))
+        # the parameters live on the host; the card holds a copy only within
+        # a batch, an eval or a densification round
+        state = strategy.strip_device_params(state)
 
+    def scalar(v, dev=device):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    # the host Adam reads its learning rates on the host
+    lr_dev = "cpu" if naive else device
     fixed_lrs = {
-        "opacity": scalar(cfg.opt.opacity_lr * lr_scale),
+        "opacity": scalar(cfg.opt.opacity_lr * lr_scale, lr_dev),
         "log_scale": scalar(cfg.opt.scaling_lr * cfg.opt.lr_scale_pos_and_scale
-                            * lr_scale),
-        "quat": scalar(cfg.opt.rotation_lr * lr_scale),
-        "sh": sh_column_lr(cfg.opt.feature_lr, device=device) * lr_scale,
+                            * lr_scale, lr_dev),
+        "quat": scalar(cfg.opt.rotation_lr * lr_scale, lr_dev),
+        "sh": sh_column_lr(cfg.opt.feature_lr, device=lr_dev) * lr_scale,
     }
     background = scalar([1.0, 1.0, 1.0] if cfg.model.white_background
                         else [0.0, 0.0, 0.0])
@@ -153,7 +187,15 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
     profiler = None
 
     def frozen_probe():
-        return float(torch.abs(state.params.xyz).sum())
+        # naive_offload's canonical xyz is the host copy: the device
+        # placeholder would pass vacuously
+        xyz = strategy_ctx.params_host["xyz"] if naive else state.params.xyz
+        return float(torch.abs(xyz).sum())
+
+    def full_state():
+        """The state with its parameters on the device (naive_offload:
+        uploaded from the host copy)."""
+        return strategy.materialize(state, strategy_ctx) if naive else state
 
     check_frozen = cfg.debug.stop_update_param and cfg.debug.stop_update_param_assert
     frozen_param_sum = frozen_probe() if check_frozen else None
@@ -164,9 +206,8 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
     iteration = start_iter
     while iteration <= cfg.opt.iterations:
         sh_degree = min((iteration - 1) // 1000, cfg.model.sh_degree)
-        lrs = dict(fixed_lrs, xyz=torch.tensor(
-            float(xyz_lr_fn(iteration)) * lr_scale, dtype=torch.float32,
-            device=device))
+        lrs = dict(fixed_lrs, xyz=scalar(float(xyz_lr_fn(iteration)) * lr_scale,
+                                         lr_dev))
 
         timers.start("data_next")
         cams, gt, b_idxs = dataset.next_batch()
@@ -186,13 +227,19 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
                 and profiler is None):
             profiler = _start_profiler(device)
         timers.start("train_step")
-        state, opt_state, out = no_offload.train_step(
-            state, opt_state, cb, gt, sh_degree, lrs, adam_cfg, background, W, H,
-            sparse_adam=cfg.aux.sparse_adam,
-            accumulate_stats=not cfg.opt.disable_auto_densification,
-            lambda_dssim=cfg.opt.lambda_dssim, loss_scale=cfg.opt.lr_scale_loss,
-            stop_update_param=cfg.debug.stop_update_param,
-        )
+        if naive:
+            state, opt_state, strategy_ctx, out = strategy.train_one_batch(
+                state, opt_state, strategy_ctx, cb, gt, sh_degree, lrs, adam_cfg,
+                background, W, H, cfg, timers=timers)
+        else:
+            state, opt_state, out = strategy.train_step(
+                state, opt_state, cb, gt, sh_degree, lrs, adam_cfg, background,
+                W, H, sparse_adam=cfg.aux.sparse_adam,
+                accumulate_stats=not cfg.opt.disable_auto_densification,
+                lambda_dssim=cfg.opt.lambda_dssim,
+                loss_scale=cfg.opt.lr_scale_loss,
+                stop_update_param=cfg.debug.stop_update_param,
+            )
         timers.stop("train_step", sync=out.losses)
 
         loss = float(out.losses.mean())
@@ -217,20 +264,31 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
                for ti in cfg.aux.test_iterations):
             e2e.pause(sync=out.losses)
             timers.start("eval")
-            training_report(cfg, scene, state, sh_degree, background, iteration,
-                            logger, device)
+            # naive_offload: one upload for the whole eval, freed after it
+            training_report(cfg, scene, full_state(), sh_degree, background,
+                            iteration, logger, device)
             timers.stop("eval")
             e2e.start()
 
         # ---- densification ----
-        if (not cfg.opt.disable_auto_densification
-                and iteration <= cfg.opt.densify_until_iter):
+        densify_window = (not cfg.opt.disable_auto_densification
+                          and iteration <= cfg.opt.densify_until_iter)
+        will_densify = iteration > cfg.opt.densify_from_iter and (
+            check_update_at_this_iter(iteration, bsz,
+                                      cfg.opt.densification_interval, 0))
+        will_reset = check_update_at_this_iter(
+            iteration, bsz, cfg.opt.opacity_reset_interval, 0)
+        if densify_window and naive and (will_densify or will_reset):
+            # densify and reset work on the device parameters: materialize
+            # for the section, strip after it (post_densify and
+            # post_opacity_reset refresh the host copy)
+            state = full_state()
+        if densify_window:
             # densification statistics are garbage without param updates
             if cfg.debug.stop_update_param:
                 raise ValueError("stop_update_param must be false for "
                                  "densification; it is a debugging flag")
-            if iteration > cfg.opt.densify_from_iter and check_update_at_this_iter(
-                    iteration, bsz, cfg.opt.densification_interval, 0):
+            if will_densify:
                 timers.start("count_densify")
                 n_new = Dn.count_densify(state, cfg.opt.densify_grad_threshold,
                                          cfg.opt.percent_dense, spatial)
@@ -242,24 +300,32 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
                     timers.start("grow_capacity")
                     state = G.grow_capacity(state, new_cap)
                     opt_state = _grow_opt(opt_state, new_cap)
-                    timers.stop("grow_capacity", sync=opt_state.nu.xyz)
+                    if naive:
+                        strategy_ctx = strategy.grow_context(strategy_ctx,
+                                                             new_cap, cfg)
+                    timers.stop("grow_capacity", sync=state.params.xyz)
                 size_prune = iteration > cfg.opt.opacity_reset_interval
                 timers.start("densify")
                 state, opt_state, info = Dn.densify_and_prune(
                     state, opt_state, generator, cfg.opt.densify_grad_threshold,
                     cfg.opt.min_opacity, spatial, cfg.opt.percent_dense, size_prune,
                 )
+                if naive:
+                    strategy_ctx = strategy.post_densify(strategy_ctx, state, info)
                 timers.stop("densify", sync=state.params.xyz)
                 timers.start("log")
                 logger.densify_report(iteration, iteration + bsz, info.n_alive,
                                       _device_gb(device), _host_gb())
                 timers.stop("log")
-            if check_update_at_this_iter(iteration, bsz,
-                                         cfg.opt.opacity_reset_interval, 0):
+            if will_reset:
                 timers.start("reset_opacity")
                 state, opt_state = Dn.reset_opacity(state, opt_state)
+                if naive:
+                    strategy_ctx = strategy.post_opacity_reset(strategy_ctx, state)
                 timers.stop("reset_opacity", sync=state.params.opacity)
                 logger.write(f"iteration[{iteration},{iteration+bsz}) reset_opacity\n")
+            if naive:
+                state = strategy.strip_device_params(state)
 
         # ---- save / checkpoint ----
         save_hits = [s for s in cfg.aux.save_iterations
@@ -267,16 +333,25 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
         if save_hits and not cfg.debug.do_not_save:
             e2e.pause(sync=out.losses)
             timers.start("save")
-            scene.gaussians = state
+            scene.gaussians = full_state()
             scene.save(save_hits[-1], logger)
+            scene.gaussians = None
             timers.stop("save")
             logger.write(f"[ITER {iteration}] Saving Gaussians\n")
             e2e.start()
         if any(iteration <= c < iteration + bsz for c in cfg.aux.checkpoint_iterations):
             e2e.pause(sync=out.losses)
             timers.start("checkpoint")
-            save_checkpoint(cfg.model.model_path, iteration + bsz, state,
-                            opt_state, generator)
+            if naive:
+                # self-contained chkpnt.npz: the parameters, zero moments
+                # (built on the host), and the host moments beside it
+                save_checkpoint(
+                    cfg.model.model_path, iteration + bsz, full_state(),
+                    init_adam(strategy.host_params(strategy_ctx)), generator,
+                    strategy_extra=strategy.checkpoint_extra(strategy_ctx))
+            else:
+                save_checkpoint(cfg.model.model_path, iteration + bsz, state,
+                                opt_state, generator)
             timers.stop("checkpoint")
             logger.write(f"[ITER {iteration}] Saving Checkpoint\n")
             e2e.start()
@@ -293,7 +368,7 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
         logger.end2end(e2e.elapsed(), cfg.opt.iterations - start_iter + 1)
     if timers.enabled:
         logger.write(timers.report() + "\n")
-    return state, opt_state
+    return full_state(), opt_state
 
 
 def _start_profiler(device):

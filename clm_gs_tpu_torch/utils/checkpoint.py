@@ -5,8 +5,10 @@ the random generator's state.
 The JAX package's layout and key names: `<model_path>/checkpoints/<it>/`
 holds `chkpnt.npz` (`params.<f>`, `mu.<f>`, `nu.<f>` for each parameter
 group, `alive`, `xyz_grad_accum`, `denom`, `max_radii2d`, `steps`,
-`rng_key`) and `meta.json`. Every file is written through a temporary name
-and `os.replace`, and `meta.json` comes last: it marks a complete checkpoint,
+`rng_key`), for the offload strategies `strategy_extra.npz` (what the
+strategy keeps off the state, e.g. naive_offload's host moments), and
+`meta.json`. Every file is written through a temporary name and
+`os.replace`, and `meta.json` comes last: it marks a complete checkpoint,
 and `latest_checkpoint` skips a directory without it. `rng_key` holds the
 state of the port's `torch.Generator` (a uint8 array).
 """
@@ -43,7 +45,8 @@ def _np(t):
 
 def save_checkpoint(model_path: str, iteration: int, state: GaussianState,
                     opt_state: AdamState, generator: torch.Generator,
-                    extra: Optional[dict] = None):
+                    extra: Optional[dict] = None,
+                    strategy_extra: Optional[dict] = None):
     """Write checkpoint `iteration` (the iteration a resume starts at)."""
     out_dir = os.path.join(model_path, "checkpoints", str(iteration))
     os.makedirs(out_dir, exist_ok=True)
@@ -58,6 +61,8 @@ def save_checkpoint(model_path: str, iteration: int, state: GaussianState,
     arrays["steps"] = _np(opt_state.steps)
     arrays["rng_key"] = generator.get_state().numpy()
     _atomic_savez(os.path.join(out_dir, "chkpnt.npz"), arrays)
+    if strategy_extra:
+        _atomic_savez(os.path.join(out_dir, "strategy_extra.npz"), strategy_extra)
     meta = {"iteration": iteration, "n_alive": int(state.n_alive)}
     if extra:
         meta.update(extra)

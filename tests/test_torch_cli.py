@@ -461,7 +461,7 @@ def test_timer_spans(scene, tmp_path, enabled):
                      "reset_opacity": 1, "save": 1, "checkpoint": 1}
 
 
-@pytest.mark.parametrize("strategy", ["naive_offload", "clm_offload", None])
+@pytest.mark.parametrize("strategy", ["clm_offload", None])
 def test_strategies_not_ported_raise(scene, tmp_path, strategy):
     argv = ["-s", scene, "-m", str(tmp_path / "x")] + (
         [f"--{strategy}"] if strategy else [])
