@@ -29,6 +29,15 @@ Phases, one JSON line each:
      naive.grads / naive.d2h_adam split, and the device memory left after
      the batch, which must be below the parameters' bytes (the device copy
      was freed).
+  6b. clm_step, on the state phase 6 leaves: from the same seeded moments,
+     clm_offload.train_one_batch (SH rows and moments on the host, the
+     camera order of csrc/host/fast_tsp.cpp) with retention and without,
+     against one no_offload.train_step: losses (sorted, as the TSP reorders
+     the cameras), parameter moves and first moments, retention against the
+     full re-gather, the bytes of the clm state and card moments against
+     no_offload's (at least the SH parameters' and their two moments'
+     less), and for each: a first batch, a warm one (batch time, bytes each
+     way, the overlap meter) and one under --enable_timer's spans.
   7. cli: the bench scene's 1M Gaussians written as a COLMAP scene (32
      cameras of 1237x822, utils/synthetic_colmap.py). A short run to the
      first densification round reports the rows each gradient threshold
@@ -48,7 +57,14 @@ Phases, one JSON line each:
      each kernel's launches, a device peak below phase 7's; then a resume
      from its checkpoint with `python -m clm_gs_tpu_torch.train
      --naive_offload`, which restores the host moments from
-     strategy_extra.npz. The kernels line follows it.
+     strategy_extra.npz.
+  9. clm: the same under --clm_offload (the default strategy): growth, a
+     reset, the PSNR within 0.5 dB of phase 7's, the PLY against the final
+     state, each kernel's launches, a device peak below phase 7's (beside
+     phase 8's), the `clm overlap:` line, the bytes each way a batch and the
+     clm spans; then a resume from its checkpoint with `python -m
+     clm_gs_tpu_torch.train --clm_offload`, which restores the host SH rows
+     and moments from strategy_extra.npz. The kernels line follows it.
 Any failed check exits 1. The last line is the device summary. Without CUDA,
 or without the package beside it, the script exits 1 and prints no result.
 """
@@ -109,8 +125,13 @@ TOL = {
     # gradients (first moments) relative to their largest value
     "loss_rel": 1e-4,
     "step_rel": 1e-3,
-    # naive_offload's CLI run against no_offload's: final test PSNR (dB)
+    # the offload strategies' CLI runs against no_offload's: final test
+    # PSNR (dB)
     "naive_psnr_db": 0.5,
+    "clm_psnr_db": 0.5,
+    # clm_step with retention against the full re-gather, relative to each
+    # group's largest move
+    "retention_rel": 1e-5,
 }
 
 
@@ -191,7 +212,8 @@ def run(torch, report):
     ptxas = _build.build()
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    _build.host_library("cpu_adam")
+    for lib in ("cpu_adam", "fast_tsp"):
+        _build.host_library(lib)
     host_build_s = time.perf_counter() - t0
     regs = {k: [ln.strip() for ln in v.splitlines() if "Used" in ln]
             for k, v in ptxas.items()}
@@ -201,7 +223,7 @@ def run(torch, report):
                         "ptxas": regs}
     emit({"phase": "device", "build_s": round(build_s, 3),
           "built": sorted(ptxas), "host_build_s": round(host_build_s, 3),
-          "host_built": ["cpu_adam"]})
+          "host_built": ["cpu_adam", "fast_tsp"]})
 
     # 2. kernels against plain versions at a mid size, and against the oracle
     mid = kernel_checks(torch, n=20_000, w=640, h=480, reps=5)
@@ -227,6 +249,9 @@ def run(torch, report):
     report["naive_step"] = naive_step(torch, box, *step_args)
     emit(report["naive_step"])
     torch.cuda.empty_cache()
+    report["clm_step"] = clm_step(torch, box, *step_args)
+    emit(report["clm_step"])
+    torch.cuda.empty_cache()
 
     # 7. and 8. the training CLI under no_offload and naive_offload on one
     # synthetic COLMAP scene at full width, written and decoded once
@@ -242,6 +267,9 @@ def run(torch, report):
         torch.cuda.empty_cache()
         report["naive"] = naive_cli_run(torch, work, colmap, report["cli"])
         emit(report["naive"])
+        torch.cuda.empty_cache()
+        report["clm"] = clm_cli_run(torch, work, colmap, report["cli"], report["naive"])
+        emit(report["clm"])
 
     launches = report["full"]["launches"]
     emit({"kernels": [
@@ -250,6 +278,8 @@ def run(torch, report):
          "cli_launches": report["cli"]["launches"].get(k, 0),
          "naive_step_launches": report["naive_step"]["launches"].get(k, 0),
          "naive_launches": report["naive"]["launches"].get(k, 0),
+         "clm_step_launches": report["clm_step"]["launches"].get(k, 0),
+         "clm_launches": report["clm"]["launches"].get(k, 0),
          "max_abs_err": full[k]["max_abs_err"], "ms": full[k]["ms"],
          "plain_ms": full[k]["plain_ms"], "bound_ms": full[k]["bound_ms"],
          "bound_by": full[k]["bound_by"], "library_ms": full[k]["library_ms"]}
@@ -1006,6 +1036,8 @@ def naive_step(torch, box, lrs, adam_cfg):
           f"take {param_bytes}")
     check(all(launches.get(k, 0) > 0 for k in KERNELS),
           f"naive_step: a kernel of the path never launched: {launches}")
+    # the next phase starts from this batch's parameters, on the card
+    box.append((naive.materialize(state, ctx), cb, gts, bg))
     return result
 
 
@@ -1104,6 +1136,335 @@ def naive_cli_run(torch, work, scene, cli):
     check(res.returncode == 0 and result["resume"]["resumed"] and extra_saved
           and last.startswith("end2end total_time:"),
           f"naive: the resumed call failed (rc {res.returncode}, strategy_extra.npz "
+          f"{extra_saved}): {last}")
+    return result
+
+
+# clm_offload keeps the 48 SH floats of a Gaussian, their gradients and
+# their two moments on the host
+SH_COLS = 48
+GROUPS = ("xyz", "opacity", "log_scale", "quat", "sh")
+CLM_SPANS = ("clm.filters", "clm.order", "clm.fetch_h2d", "clm.micro", "clm.advance",
+             "clm.d2h_scatter")
+# In a fresh process (the caching host allocator holds no block yet): the
+# seconds to allocate a pinned (rows, 48) float32 buffer, as grow_context
+# does, and to zero it; then the same again, served from the cache.
+PIN_PROBE = """
+import json, sys, time, torch
+rows = int(sys.argv[1])
+torch.zeros(1, device="cuda")
+out = {}
+for name in ("fresh", "cached"):
+    t0 = time.perf_counter()
+    buf = torch.empty((rows, 48), dtype=torch.float32, pin_memory=True)
+    out[name + "_pin_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    buf.zero_()
+    out[name + "_zero_s"] = time.perf_counter() - t0
+    del buf
+print(json.dumps(out))
+"""
+
+
+def _tensor_bytes(torch, obj) -> int:
+    """Bytes of every tensor in a state or optimizer state."""
+    import dataclasses
+
+    if torch.is_tensor(obj):
+        return obj.numel() * obj.element_size()
+    if dataclasses.is_dataclass(obj):
+        return sum(_tensor_bytes(torch, getattr(obj, f.name))
+                   for f in dataclasses.fields(obj))
+    return 0
+
+
+def _moves_against(torch, got_params, got_mu, p0, mu0, moves_no, mu_no):
+    """Parameter moves past one unit in the last place, and first moments,
+    against no_offload's, relative to each group's largest (naive_step's
+    measure)."""
+    ulp_rel, grad_rel = {}, {}
+    for f, d in moves_no.items():
+        diff = (got_params[f] - p0[f] - d).abs()
+        big = torch.maximum(p0[f].abs(), got_params[f].abs())
+        ulp = torch.nextafter(big, torch.full_like(big, float("inf"))) - big
+        scale = d.abs().max().clamp_min(1e-30)
+        ulp_rel[f] = ((diff - ulp).clamp_min(0).max() / scale).item()
+        g_scale = (mu_no[f] - 0.9 * mu0[f]).abs().max().clamp_min(1e-30)
+        grad_rel[f] = ((got_mu[f] - mu_no[f]).abs().max() / g_scale).item()
+    return ulp_rel, grad_rel
+
+
+def clm_step(torch, box, lrs, adam_cfg):
+    """The state phase 6 leaves in `box`, through one no_offload.train_step
+    and clm_offload.train_one_batch with and without retention, all from
+    the same seeded moments (the SH ones on the host for clm). For each
+    retention setting three batches from that start on one context: the
+    first (staging buffers allocated), a warm one (times, bytes, overlap
+    meter) and one with --enable_timer's spans."""
+    from dataclasses import replace
+
+    from clm_gs_tpu_torch import _build
+    from clm_gs_tpu_torch.config import Config, init_config
+    from clm_gs_tpu_torch.optim import AdamState
+    from clm_gs_tpu_torch.strategies import clm_offload as clm
+    from clm_gs_tpu_torch.strategies.no_offload import train_step
+    from clm_gs_tpu_torch.utils.native import host_threads
+    from clm_gs_tpu_torch.utils.timer import Timer
+
+    state, cb, gts, bg = box.pop()
+    w, h, C = cb.width, cb.height, state.capacity
+    dev = state.alive.device
+    opt = _seeded_moments(torch, state.params, dev)
+
+    def rows(t):
+        return t.reshape(C, -1).cpu()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_no, o_no, out_no = train_step(state, opt, cb, gts, 3, lrs, adam_cfg, bg, w, h)
+    losses_no = torch.sort(out_no.losses.cpu()).values
+    no_offload_s = time.perf_counter() - t0
+    p0 = {f: rows(getattr(state.params, f)) for f in GROUPS}
+    mu0 = {f: rows(getattr(opt.mu, f)) for f in GROUPS}
+    moves_no = {f: rows(getattr(s_no.params, f)) - p0[f] for f in GROUPS}
+    mu_no = {f: rows(getattr(o_no.mu, f)) for f in GROUPS}
+    no_bytes = _tensor_bytes(torch, s_no) + _tensor_bytes(torch, o_no)
+    del s_no, o_no, out_no
+
+    sh_nu0 = opt.nu.sh.cpu()
+    s = clm.strip_device_sh(state)
+
+    def placeholder():
+        return torch.zeros((1, SH_COLS), device=dev)
+
+    o = AdamState(replace(opt.mu, sh=placeholder()), replace(opt.nu, sh=placeholder()),
+                  opt.steps)
+    clm_bytes = _tensor_bytes(torch, s) + _tensor_bytes(torch, o)
+    host_lrs = dict(lrs, sh=lrs["sh"].cpu())
+
+    def batch(cfg, ctx, timed):
+        """One batch from the seeded start, the context reset to it."""
+        ctx.sh_host.copy_(p0["sh"])
+        ctx.sh_grad_host.zero_()
+        ctx.adam.exp_avg, ctx.adam.exp_avg_sq = mu0["sh"].clone(), sh_nu0.clone()
+        ctx.adam.step_count = int(opt.steps)
+        ctx.trailing_s = ctx.scatter_work_s = ctx.adam_work_s = 0.0
+        ctx.n_batches = ctx.h2d_bytes = ctx.d2h_bytes = 0
+        timers = Timer(enabled=timed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        s2, o2, ctx, out = clm.train_one_batch(s, o, ctx, cb, gts, 3, host_lrs,
+                                               adam_cfg, bg, w, h, cfg, timers=timers)
+        losses = torch.sort(out.losses.cpu()).values
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t0
+        params = {f: rows(getattr(s2.params, f)) for f in GROUPS[:4]}
+        params["sh"] = ctx.sh_host.clone()
+        mu = {f: rows(getattr(o2.mu, f)) for f in GROUPS[:4]}
+        mu["sh"] = ctx.adam.exp_avg.clone()
+        ulp_rel, grad_rel = _moves_against(torch, params, mu, p0, mu0, moves_no, mu_no)
+        run = {
+            "batch_s": batch_s, "order_losses_sorted": losses.tolist(),
+            "loss_rel_err": ((losses - losses_no).abs() / losses_no.abs()).max().item(),
+            "param_step_rel_err_past_one_ulp": ulp_rel, "grad_rel_err": grad_rel,
+            "h2d_bytes": ctx.h2d_bytes, "d2h_bytes": ctx.d2h_bytes,
+            "trailing_s": ctx.trailing_s, "scatter_work_s": ctx.scatter_work_s,
+            "adam_work_s": ctx.adam_work_s,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "launches": dict(_build.LAUNCHES),
+        }
+        if timed:
+            run["span_ms"] = {k: timers.sums[k] * 1e3 for k in CLM_SPANS if k in timers.sums}
+            run["span_calls"] = {k: timers.counts[k] for k in CLM_SPANS
+                                 if k in timers.counts}
+        return run, params
+
+    runs, finals = {}, {}
+    for retention in (True, False):
+        cfg = Config()
+        cfg.aux.clm_offload = True
+        cfg.tpu.retention = retention
+        init_config(cfg)
+        ctx = clm.make_context(cfg, state, adam_cfg)
+        try:
+            out = [batch(cfg, ctx, timed) for timed in (False, False, True)]
+        finally:
+            ctx.close()
+        key = "retention" if retention else "full_regather"
+        runs[key] = dict(zip(("first", "warm", "timed"), (r for r, _ in out)))
+        finals[key] = out[0][1]
+    ret_rel = max(((finals["retention"][f] - finals["full_regather"][f]).abs().max()
+                   / moves_no[f].abs().max().clamp_min(1e-30)).item() for f in GROUPS)
+    result = {
+        "phase": "clm_step", "gaussians": state.n_alive, "capacity": C,
+        "cameras": gts.shape[0], "width": w, "height": h,
+        "no_offload_losses_sorted": losses_no.tolist(), "no_offload_s": no_offload_s,
+        "runs": runs, "retention_vs_full_rel": ret_rel,
+        "state_and_moment_bytes": {"no_offload": no_bytes, "clm_offload": clm_bytes,
+                                   "saved": no_bytes - clm_bytes,
+                                   "sh_param_bytes": C * SH_COLS * 4},
+        "host_threads": host_threads(),
+        "tol": [TOL["loss_rel"], TOL["step_rel"], TOL["retention_rel"]],
+        "launches": runs["retention"]["first"]["launches"],
+    }
+    for key, r in runs.items():
+        for when, run in r.items():
+            check(run["loss_rel_err"] <= TOL["loss_rel"]
+                  and max(run["param_step_rel_err_past_one_ulp"].values()) <= TOL["step_rel"]
+                  and max(run["grad_rel_err"].values()) <= TOL["step_rel"],
+                  f"clm_step {key} {when} against no_offload: loss "
+                  f"{run['loss_rel_err']}, steps past one ulp "
+                  f"{run['param_step_rel_err_past_one_ulp']}, first moments "
+                  f"{run['grad_rel_err']}")
+            check(all(run["launches"].get(k, 0) > 0 for k in KERNELS),
+                  f"clm_step {key} {when}: a kernel of the path never launched: "
+                  f"{run['launches']}")
+    check(ret_rel <= TOL["retention_rel"],
+          f"clm_step: retention against the full re-gather {ret_rel}")
+    check(runs["retention"]["warm"]["h2d_bytes"] < runs["full_regather"]["warm"]["h2d_bytes"],
+          "clm_step: retention moved no fewer bytes up than the full re-gather")
+    check(no_bytes - clm_bytes >= 3 * (C - 1) * SH_COLS * 4,
+          f"clm_step: the clm state and moments take {clm_bytes} bytes, "
+          f"no_offload's {no_bytes}")
+    return result
+
+
+def clm_cli_run(torch, work, scene, cli, naive):
+    """`main` of clm_gs_tpu_torch.train under --clm_offload on the scene and
+    decoded images of phase 7 in `work` (launch counts over the run, the
+    context's bytes and overlap meter read from its last batch), then
+    `python -m clm_gs_tpu_torch.train --clm_offload` resuming from its
+    checkpoint to iteration 120; checked against phase 7's result `cli` and
+    reported beside phase 8's `naive`."""
+    from pathlib import Path
+
+    from clm_gs_tpu_torch import _build
+    from clm_gs_tpu_torch.models import gaussians as G
+    from clm_gs_tpu_torch.strategies import clm_offload as clm
+    from clm_gs_tpu_torch.train import main as train_main
+    from clm_gs_tpu_torch.utils.native import host_threads
+    from clm_gs_tpu_torch.utils.synthetic_colmap import FULL_TRAIN_ARGS
+
+    root = Path(__file__).resolve().parent
+    args = [a for a in FULL_TRAIN_ARGS if a != "--no_offload"] + ["--clm_offload"]
+    out = f"{work}/clm"
+    argv = ["-s", scene, "-m", out, "--decode_dataset_path", f"{work}/decoded",
+            "--quiet"] + args
+    last_ctx = []
+    real = clm.train_one_batch
+
+    def spy(*a, **k):
+        res = real(*a, **k)
+        last_ctx[:] = [res[2]]
+        return res
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    clm.train_one_batch = spy
+    t0 = time.perf_counter()
+    try:
+        state, opt = train_main(argv)
+    finally:
+        clm.train_one_batch = real
+    run_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    text = Path(out, "python.log").read_text()
+    log = _parse_log(text)
+    overlap = [ln for ln in text.splitlines() if ln.startswith("clm overlap: ")]
+    ctx = last_ctx[0]
+
+    ply = Path(out, "point_cloud", "iteration_200", "point_cloud.ply")
+    back = G.load_ply(str(ply), device=state.alive.device)
+    ply_equal = all(torch.equal(getattr(back.params, f)[back.alive],
+                                getattr(state.params, f)[state.alive])
+                    for f in GROUPS)
+    ply_rows, n_end, cap_end = back.n_alive, state.n_alive, state.capacity
+    placeholder = [tuple(opt.mu.sh.shape), tuple(opt.nu.sh.shape)]
+    del back, state, opt
+    torch.cuda.empty_cache()
+
+    ckpt = Path(out, "checkpoints", "101")
+    extra_saved = Path(ckpt, "strategy_extra.npz").exists()
+    out2 = f"{work}/clm_resume"
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "clm_gs_tpu_torch.train", "-s", scene, "-m", out2,
+         "--decode_dataset_path", f"{work}/decoded", "--quiet",
+         "--start_checkpoint", str(ckpt), "--do_not_save"]
+        + [a for a in args if a != "--enable_timer"] + ["--iterations", "120"],
+        cwd=root, capture_output=True, text=True, check=False, timeout=600)
+    resume_s = time.perf_counter() - t0
+    log2_text = (Path(out2, "python.log").read_text()
+                 if Path(out2, "python.log").exists() else "")
+    log2 = _parse_log(log2_text)
+    # the growth's page-locking: this process's host cache still holds the
+    # naive phase's freed pinned buffers, which grow_context reuses
+    probe = subprocess.run([sys.executable, "-c", PIN_PROBE, str(cap_end)],
+                           capture_output=True, text=True, check=False, timeout=120)
+
+    steps = log["timers"].get("train_step", (0.0, 0))[1]
+    e2e_s, it_s = log["end2end"] or (float("nan"), float("nan"))
+    psnr_gap = ((log["test_psnr"] or [float("nan")])[-1] - cli["test_psnr"][-1])
+    nb = max(ctx.n_batches, 1)
+    result = {
+        "phase": "clm", "args": args, "run_s": run_s,
+        "gaussians_start": log.get("initialized"), "gaussians_end": n_end,
+        "cli_gaussians_end": cli["gaussians_end"],
+        "naive_gaussians_end": naive["gaussians_end"], "capacity_end": cap_end,
+        "capacity_growths": log["capacity"], "densify_counts": log["densify"],
+        "resets": log["resets"], "test_psnr": log["test_psnr"],
+        "final_test_psnr_minus_cli": psnr_gap, "losses": log["losses"],
+        "n3dgs": log["n3dgs"], "end2end_s": e2e_s, "it_per_s": it_s,
+        "cli_it_per_s": cli["it_per_s"], "naive_it_per_s": naive["it_per_s"],
+        "steps": steps,
+        "timer_mean_ms": {k: v[0] / max(v[1], 1) for k, v in log["timers"].items()},
+        "timer_calls": {k: v[1] for k, v in log["timers"].items()},
+        "batches": ctx.n_batches, "h2d_bytes_per_batch": ctx.h2d_bytes / nb,
+        "d2h_bytes_per_batch": ctx.d2h_bytes / nb,
+        "trailing_ms_per_batch": ctx.trailing_s / nb * 1e3,
+        "scatter_work_ms_per_batch": ctx.scatter_work_s / nb * 1e3,
+        "adam_work_ms_per_batch": ctx.adam_work_s / nb * 1e3,
+        "overlap_line": overlap[-1] if overlap else None,
+        "host_threads": host_threads(), "sh_placeholder_moments": placeholder,
+        "pin_probe": {"rows": cap_end, "rc": probe.returncode,
+                      **(json.loads(probe.stdout.strip().splitlines()[-1])
+                         if probe.returncode == 0 else {})},
+        "peak_device_bytes": peak, "cli_peak_device_bytes": cli["peak_device_bytes"],
+        "naive_peak_device_bytes": naive["peak_device_bytes"],
+        "launches": launches, "ply_rows": ply_rows, "ply_equal": ply_equal,
+        "resume": {"rc": res.returncode, "s": resume_s, "strategy_extra": extra_saved,
+                   "resumed": "Resumed from" in log2_text,
+                   "end2end": log2["end2end"], "test_psnr": log2["test_psnr"],
+                   "densify_counts": log2["densify"]},
+    }
+    if res.returncode != 0:
+        print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
+    finite = all(v == v and abs(v) != float("inf") for v in log["losses"])
+    check(finite and log["losses"], f"clm: losses {log['losses']}")
+    check(all(launches.get(k, 0) > 0 for k in KERNELS),
+          f"clm: a kernel of the path never launched: {launches}")
+    check(log["capacity"], "clm: the model never outgrew its first capacity")
+    check(log["resets"] >= 1, "clm: no reset_opacity line")
+    check(len(log["test_psnr"]) >= 2 and log["test_psnr"][-1] > log["test_psnr"][0]
+          and abs(psnr_gap) <= TOL["clm_psnr_db"],
+          f"clm: test PSNR {log['test_psnr']}, {psnr_gap} dB from the cli run's")
+    check(ply_rows == n_end == log["n3dgs"][-1] and ply_equal,
+          f"clm: PLY rows {ply_rows}, n_alive {n_end}, last n3dgs "
+          f"{log['n3dgs'][-1]}, equal {ply_equal}")
+    check(placeholder == [(1, SH_COLS)] * 2, f"clm: SH moments on the card {placeholder}")
+    check(probe.returncode == 0, f"clm: the pinning probe failed: {probe.stderr[-500:]}")
+    check(peak < cli["peak_device_bytes"],
+          f"clm: device peak {peak} not below the cli run's {cli['peak_device_bytes']}")
+    check(overlap and ctx.n_batches == steps and ctx.h2d_bytes > 0 and ctx.d2h_bytes > 0,
+          f"clm: overlap lines {len(overlap)}, batches {ctx.n_batches} of {steps}")
+    last = (log2_text.rstrip().splitlines() or [""])[-1]
+    check(res.returncode == 0 and result["resume"]["resumed"] and extra_saved
+          and last.startswith("end2end total_time:"),
+          f"clm: the resumed call failed (rc {res.returncode}, strategy_extra.npz "
           f"{extra_saved}): {last}")
     return result
 

@@ -49,11 +49,13 @@ class AuxiliaryParams:
     checkpoint_iterations: List[int] = field(default_factory=list)
     matrixcity_ocean_mask: bool = False
     num_save_images_during_eval: int = 0
-    # knobs of the reference's CUDA code, accepted and ignored:
+    # clm_offload: the priority of its copy stream, and the sparsest
+    # camera of a batch last in the TSP order
     comm_stream_priority: int = -1
+    reorder_by_min_sparsity_at_end: bool = True
+    # knobs of the reference's CUDA code, accepted and ignored:
     grid_size_H: int = 32
     grid_size_D: int = 128
-    reorder_by_min_sparsity_at_end: bool = True
     gpu: int = 0
     # torch-DataLoader knobs, ignored: the loader is a prefetching thread
     # pool (num_workers) over the raw predecode cache
@@ -122,7 +124,7 @@ class BenchmarkParams:
     end2end_time: bool = True
     check_gpu_memory: bool = False
     check_cpu_memory: bool = False
-    # clm_offload's overlap meter every batch (not ported yet)
+    # clm_offload's overlap meter every batch, not only at log lines
     log_cpu_adam_trailing_overhead: bool = False
     # memory debug knobs, ignored: --check_gpu_memory logs the peak and live
     # bytes, --profile traces with torch.profiler
@@ -159,10 +161,11 @@ class DebugParams:
 @dataclass
 class TpuParams:
     """The JAX package's own knobs. The port uses `capacity_granule`,
-    `eval_res_cap` and `gt_device_cache_mb`; it accepts and ignores the
-    multi-chip and TPU ones (`mesh_shape`, `shard_gaussians`, `dist_*`,
-    `isect_cap`, `isect_margin`, `gather_cap`, `pinned_host`) and the
-    clm_offload one (`retention`, not ported yet)."""
+    `eval_res_cap`, `gt_device_cache_mb` and clm_offload's `retention`; it
+    accepts and ignores the multi-chip and TPU ones (`mesh_shape`,
+    `shard_gaussians`, `dist_*`, `isect_cap`, `isect_margin`, `gather_cap`)
+    and `pinned_host` (the host SH buffer is pinned already; the card-side
+    gather from mapped memory is not ported, and the run's log says so)."""
 
     mesh_shape: str = ""
     shard_gaussians: bool = True

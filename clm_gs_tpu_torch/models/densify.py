@@ -15,7 +15,10 @@ Mask-based updates of the fixed-capacity rows, as in the reference:
     start at zero; all densification statistics restart at zero.
 
 ``count_densify`` says how many rows the next round writes, so the caller can
-grow the capacity first. The split samples come from a ``torch.Generator``
+grow the capacity first. With ``include_sh=False`` (clm_offload, whose SH rows
+live on the host) the state's SH is a (1, 48) placeholder that passes through
+unchanged, as do its moments: the caller replays the SH row moves on the host
+from the returned plan. The split samples come from a ``torch.Generator``
 or, for a comparison with the reference, from a given ``noise`` tensor of
 standard normals of shape (N, C, 3).
 """
@@ -79,6 +82,7 @@ def densify_and_prune(
     size_prune: bool,
     n_split_samples: int = 2,
     noise: Optional[torch.Tensor] = None,
+    include_sh: bool = True,
 ):
     """One densification round. Returns (state, opt_state, DensifyInfo).
 
@@ -128,7 +132,8 @@ def densify_and_prune(
         dest = torch.where(src_mask, free_slots[k], torch.full_like(k, C))
         src = torch.nonzero(src_mask).flatten()
         for f, rows in zip(FIELDS, (xyz, p.opacity, log_scale, p.quat, p.sh)):
-            new[f][dest[src]] = rows[src]
+            if f != "sh" or include_sh:
+                new[f][dest[src]] = rows[src]
         written[dest[src]] = True
         return dest.int()
 
@@ -145,6 +150,8 @@ def densify_and_prune(
 
     # dead rows are zeroed so masked projection sees benign values
     def clear_dead(x):
+        if x.shape[0] != C:  # the host-kept SH's placeholder
+            return x
         return torch.where(alive_new.reshape((C,) + (1,) * (x.ndim - 1)), x,
                            torch.zeros_like(x))
 

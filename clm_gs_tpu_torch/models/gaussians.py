@@ -9,6 +9,10 @@ Initialisation from a point cloud: opacity = inverse_sigmoid(0.1), scale =
 sqrt(mean squared distance to the 3 nearest neighbours), quat = (1, 0, 0, 0),
 sh dc = RGB2SH(colour), sh rest = 0. The PLY and tensor files have the
 reference's layouts, so either package reads the other's files.
+
+With ``host_sh=True`` (clm_offload) the loaders return ``(state, sh_host)``:
+the (C, 48) SH block goes to a host buffer (pinned when the state is on the
+card) and never to the card, whose state carries a (1, 48) zero placeholder.
 """
 
 from __future__ import annotations
@@ -88,10 +92,19 @@ def empty_state(capacity: int, device="cuda") -> GaussianState:
     )
 
 
-def _from_rows(rows: dict, n: int, capacity: Optional[int], device) -> GaussianState:
+def host_zeros(rows: int, cols: int, device) -> torch.Tensor:
+    """(rows, cols) float32 zeros on the host, pinned when `device` is a
+    card (the buffers a strategy keeps off the card and copies from)."""
+    return torch.zeros((rows, cols), dtype=torch.float32,
+                       pin_memory=check_device(device).type == "cuda")
+
+
+def _from_rows(rows: dict, n: int, capacity: Optional[int], device,
+               host_sh: bool = False):
     """A state whose first n rows are the numpy `rows` (xyz, opacity,
     log_scale, quat, sh), padded with zeros to `capacity` (next_capacity(n)
-    when None); the statistics start at zero."""
+    when None); the statistics start at zero. With `host_sh`, returns
+    (state with the SH placeholder, (capacity, 48) host SH rows)."""
     device = check_device(device)
     if capacity is None:
         capacity = next_capacity(n)
@@ -106,19 +119,26 @@ def _from_rows(rows: dict, n: int, capacity: Optional[int], device) -> GaussianS
     def z():
         return torch.zeros(capacity, dtype=torch.float32, device=device)
 
-    return GaussianState(
-        params=GaussianParams(*(pad(rows[f]) for f in PARAM_FIELDS)),
+    params = {f: pad(rows[f]) for f in PARAM_FIELDS if f != "sh" or not host_sh}
+    if host_sh:
+        sh_host = host_zeros(capacity, 48, device)
+        sh_host[:n] = torch.from_numpy(np.ascontiguousarray(rows["sh"], np.float32))
+        params["sh"] = torch.zeros((1, 48), dtype=torch.float32, device=device)
+    state = GaussianState(
+        params=GaussianParams(**params),
         alive=torch.arange(capacity, device=device) < n,
         n_alive=n, xyz_grad_accum=z(), denom=z(), max_radii2d=z(),
     )
+    return (state, sh_host) if host_sh else state
 
 
 def create_from_pcd(points: np.ndarray, colors: np.ndarray,
                     capacity: Optional[int] = None,
                     downsample_ratio: float = 1.0, seed: int = 0,
-                    device="cuda") -> GaussianState:
+                    device="cuda", host_sh: bool = False):
     """Initialise from a point cloud (positions, RGB in [0, 1]), with the
-    optional random downsample (--initial_point_cloud_downsampled_ratio)."""
+    optional random downsample (--initial_point_cloud_downsampled_ratio).
+    With `host_sh`, returns (state, sh_host) (module docstring)."""
     device = check_device(device)
     points = np.asarray(points, np.float32)
     colors = np.asarray(colors, np.float32)
@@ -135,16 +155,21 @@ def create_from_pcd(points: np.ndarray, colors: np.ndarray,
     opacity = np.full((n,), np.log(np.float32(0.1 / 0.9)), np.float32)  # logit(0.1)
     rows = {"xyz": points, "opacity": opacity, "log_scale": log_scale,
             "quat": quat, "sh": sh}
-    return _from_rows(rows, n, capacity, device)
+    return _from_rows(rows, n, capacity, device, host_sh)
 
 
 def grow_capacity(state: GaussianState, new_capacity: int) -> GaussianState:
-    """Re-pad every array to a larger capacity. Each array is a new buffer."""
-    extra = new_capacity - state.capacity
+    """Re-pad every array to a larger capacity. Each array is a new buffer,
+    but for a host-kept group's (1, cols) placeholder (rows != capacity),
+    which stays as it is."""
+    C = state.capacity
+    extra = new_capacity - C
     if extra < 0:
-        raise ValueError(f"cannot shrink capacity {state.capacity} to {new_capacity}")
+        raise ValueError(f"cannot shrink capacity {C} to {new_capacity}")
 
     def pad(x):
+        if x.shape[0] != C:
+            return x
         return torch.cat([x, x.new_zeros((extra,) + x.shape[1:])])
 
     return GaussianState(
@@ -169,9 +194,15 @@ PLY_PROPS = (
 
 
 def _compact(state: GaussianState) -> dict:
-    """Live rows gathered to the front, as host numpy arrays."""
+    """Live rows gathered to the front, as host numpy arrays. A field may
+    lie on the host while the others are on the card (clm_offload's
+    `materialize_host`)."""
     idx = torch.nonzero(state.alive).flatten()
-    return {f: getattr(state.params, f)[idx].cpu().numpy() for f in PARAM_FIELDS}
+    out = {}
+    for f in PARAM_FIELDS:
+        t = getattr(state.params, f)
+        out[f] = t[idx.to(t.device)].cpu().numpy()
+    return out
 
 
 def save_ply(state: GaussianState, path: str, chunk_rows: Optional[int] = None):
@@ -208,9 +239,10 @@ def save_ply(state: GaussianState, path: str, chunk_rows: Optional[int] = None):
                   cols[i * chunk_rows:(i + 1) * chunk_rows])
 
 
-def load_ply(path: str, capacity: Optional[int] = None, device="cuda") -> GaussianState:
+def load_ply(path: str, capacity: Optional[int] = None, device="cuda",
+             host_sh: bool = False):
     """A model PLY of the 59-property schema; raises when `capacity` is
-    below its row count."""
+    below its row count. With `host_sh`, returns (state, sh_host)."""
     with open(path, "rb") as f:
         data = f.read()
     end = data.index(b"end_header\n") + len(b"end_header\n")
@@ -228,7 +260,7 @@ def load_ply(path: str, capacity: Optional[int] = None, device="cuda") -> Gaussi
     rows = {"xyz": cols[:, 0:3], "opacity": cols[:, 54],
             "log_scale": cols[:, 55:58], "quat": cols[:, 58:62],
             "sh": np.concatenate([cols[:, 6:9], rest], axis=1)}
-    return _from_rows(rows, n, capacity, device)
+    return _from_rows(rows, n, capacity, device, host_sh)
 
 
 def resize_rows(state: GaussianState, coeff: float) -> GaussianState:
@@ -250,12 +282,13 @@ def save_tensors(state: GaussianState, path: str):
              rotation=d["quat"], parameters=d["sh"])
 
 
-def load_tensors(path: str, capacity: Optional[int] = None,
-                 device="cuda") -> GaussianState:
-    """A 5-tensor .npz; raises when `capacity` is below its row count."""
+def load_tensors(path: str, capacity: Optional[int] = None, device="cuda",
+                 host_sh: bool = False):
+    """A 5-tensor .npz; raises when `capacity` is below its row count. With
+    `host_sh`, returns (state, sh_host)."""
     with np.load(path) as z:
         n = len(z["xyz"])
         rows = {"xyz": z["xyz"], "opacity": z["opacity"].reshape(n),
                 "log_scale": z["scaling"], "quat": z["rotation"],
                 "sh": z["parameters"]}
-    return _from_rows(rows, n, capacity, device)
+    return _from_rows(rows, n, capacity, device, host_sh)

@@ -75,7 +75,8 @@ def adam_step(
     """One (optionally selective) Adam step; returns (new_params, new_state).
 
     lrs: {"xyz", "opacity", "log_scale", "quat": scalar, "sh": (48,)};
-    update_mask: (C,) bool rows to update.
+    a group without a rate keeps its parameters and moments (clm_offload's
+    SH placeholder); update_mask: (C,) bool rows to update.
     """
     b1, b2 = cfg.betas
     steps = state.steps + 1.0
@@ -106,6 +107,10 @@ def adam_step(
 
 
 def _zero_where(x, mask):
+    """x with the masked rows zeroed; a host-kept group's (1, cols)
+    placeholder (x.shape[0] != C) passes through."""
+    if x.shape[0] != mask.shape[0]:
+        return x
     bshape = (x.shape[0],) + (1,) * (x.ndim - 1)
     return torch.where(mask.reshape(bshape), torch.zeros_like(x), x)
 

@@ -5,7 +5,9 @@ directory), writes `cameras.json`, shuffles and truncates the camera lists,
 pre-decodes every image to the raw disk cache, and initialises the Gaussian
 state on the training device from the point cloud, a model PLY or a tensor
 file. `cameras_extent` (the nerf++ radius) scales the position LR and the
-densification thresholds.
+densification thresholds. Under clm_offload the SH rows load straight into
+a host buffer, `host_sh`, which the strategy's context takes over; the
+state on the card holds the (1, 48) placeholder.
 """
 
 from __future__ import annotations
@@ -73,13 +75,14 @@ class Scene:
 
         # --prealloc_capacity applies to every init path
         cap = cfg.aux.prealloc_capacity if cfg.aux.prealloc_capacity > 0 else None
+        host_sh = cfg.aux.clm_offload
         if cfg.aux.load_pt_path:
-            self.gaussians = G.load_tensors(cfg.aux.load_pt_path, capacity=cap,
-                                            device=device)
+            loaded = G.load_tensors(cfg.aux.load_pt_path, capacity=cap,
+                                    device=device, host_sh=host_sh)
         elif cfg.aux.load_ply_path.endswith(".ply") and _is_model_ply(
                 cfg.aux.load_ply_path):
-            self.gaussians = G.load_ply(cfg.aux.load_ply_path, capacity=cap,
-                                        device=device)
+            loaded = G.load_ply(cfg.aux.load_ply_path, capacity=cap,
+                                device=device, host_sh=host_sh)
         else:
             pcd = info.point_cloud
             if pcd is None:
@@ -87,10 +90,11 @@ class Scene:
             ratio = cfg.aux.initial_point_cloud_downsampled_ratio
             if cfg.debug.drop_initial_3dgs_p > 0:
                 ratio = min(ratio, 1.0 - cfg.debug.drop_initial_3dgs_p)
-            self.gaussians = G.create_from_pcd(
+            loaded = G.create_from_pcd(
                 pcd.points, pcd.colors, capacity=cap, downsample_ratio=ratio,
-                seed=cfg.debug.seed, device=device,
+                seed=cfg.debug.seed, device=device, host_sh=host_sh,
             )
+        self.gaussians, self.host_sh = loaded if host_sh else (loaded, None)
         log(f"Initialized {self.gaussians.n_alive} gaussians "
             f"(capacity {self.gaussians.capacity})\n")
 

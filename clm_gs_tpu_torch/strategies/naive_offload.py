@@ -29,7 +29,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from clm_gs_tpu_torch.models.gaussians import GaussianParams, GaussianState
+from clm_gs_tpu_torch.models.gaussians import (GaussianParams, GaussianState,
+                                               host_zeros)
 from clm_gs_tpu_torch.optim import AdamConfig
 from clm_gs_tpu_torch.strategies import no_offload
 from clm_gs_tpu_torch.strategies.no_offload import StepOut
@@ -48,12 +49,6 @@ class NaiveContext:
     uploaded: Optional[torch.cuda.Event] = None  # after the last H2D
 
 
-def _host_buffer(rows: int, cols: int, device: torch.device) -> torch.Tensor:
-    """(rows, cols) float32 zeros on the host, pinned when `device` is a card."""
-    return torch.zeros((rows, cols), dtype=torch.float32,
-                       pin_memory=device.type == "cuda")
-
-
 def _device_shape(name: str, C: int):
     return (C,) if name == "opacity" else (C, GROUP_COLS[name])
 
@@ -65,9 +60,9 @@ def make_context(cfg, state: GaussianState, adam_cfg: AdamConfig) -> NaiveContex
     device = state.alive.device
     params_host, grads_host, adams = {}, {}, {}
     for n, cols in GROUP_COLS.items():
-        params_host[n] = _host_buffer(C, cols, device)
+        params_host[n] = host_zeros(C, cols, device)
         params_host[n].view(_device_shape(n, C)).copy_(getattr(state.params, n))
-        grads_host[n] = _host_buffer(C, cols, device)
+        grads_host[n] = host_zeros(C, cols, device)
         adams[n] = HostAdam(C, cols, torch.zeros(cols), betas=adam_cfg.betas,
                             eps=adam_cfg.eps)
     return NaiveContext(params_host, adams, grads_host, device)
@@ -121,10 +116,10 @@ def _before_host_write(ctx: NaiveContext):
 def grow_context(ctx: NaiveContext, new_cap: int, cfg) -> NaiveContext:
     """Pad the host buffers and moments with zero rows to `new_cap`."""
     for n, arr in ctx.params_host.items():
-        new = _host_buffer(new_cap, arr.shape[1], ctx.device)
+        new = host_zeros(new_cap, arr.shape[1], ctx.device)
         new[: arr.shape[0]] = arr
         ctx.params_host[n] = new
-        ctx.grads_host[n] = _host_buffer(new_cap, arr.shape[1], ctx.device)
+        ctx.grads_host[n] = host_zeros(new_cap, arr.shape[1], ctx.device)
         ctx.adams[n].grow(new_cap)
     return ctx
 

@@ -1,19 +1,23 @@
 """Training CLI (clm_gs_tpu/train.py).
 
+    python -m clm_gs_tpu_torch.train -s <scene> -m <out> [--clm_offload] [flags]
     python -m clm_gs_tpu_torch.train -s <scene> -m <out> --no_offload [flags]
     python -m clm_gs_tpu_torch.train -s <scene> -m <out> --naive_offload [flags]
 
 The host-side loop of the JAX package with its flags and `python.log`
 grammar: LR schedules, the SH-degree ramp, eval, densification with capacity
 growth, opacity reset, PLY saves, checkpoints and resume. The device work is
-`strategies/no_offload.train_step`, or `strategies/naive_offload.
-train_one_batch` with the parameters and moments on the host (the state is
-then stripped between batches and materialized for eval, densification,
-saves and checkpoints), and the eval renders. The port sizes its instance
-buffers to each camera's true count, so the JAX package's
-`isect_cap`/`vis_cap`/`gather_cap` adaptation has no counterpart here, and it
-runs on one device. `clm_offload` (the default strategy) is not ported yet
-and raises.
+one of three strategies: `strategies/no_offload.train_step`;
+`strategies/naive_offload.train_one_batch`, with the parameters and moments
+on the host (the state is then stripped between batches and materialized
+for eval, densification, saves and checkpoints); or, the default,
+`strategies/clm_offload.train_one_batch`, with the SH rows and their moments
+on the host (the state carries a (1, 48) SH placeholder; densification
+replays its row moves on the host, PLY saves read the host rows, each eval
+camera gathers its visible rows, and the worker thread of the host Adam is
+shut down when the run ends). The port sizes its instance buffers to each
+camera's true count, so the JAX package's `isect_cap`/`vis_cap`/`gather_cap`
+adaptation has no counterpart here, and it runs on one device.
 
 `training` and `main` run on the card unless called with device="cpu".
 """
@@ -23,6 +27,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+from dataclasses import replace
 from typing import Optional
 
 import numpy as np
@@ -36,7 +41,7 @@ from clm_gs_tpu_torch.models import gaussians as G
 from clm_gs_tpu_torch.optim import (AdamConfig, AdamState, init_adam,
                                     lr_batch_scale, sh_column_lr)
 from clm_gs_tpu_torch.scene import Scene
-from clm_gs_tpu_torch.strategies import naive_offload, no_offload
+from clm_gs_tpu_torch.strategies import clm_offload, naive_offload, no_offload
 from clm_gs_tpu_torch.utils.checkpoint import (latest_checkpoint,
                                                load_checkpoint, save_checkpoint)
 from clm_gs_tpu_torch.utils.general import (check_device,
@@ -46,18 +51,24 @@ from clm_gs_tpu_torch.utils.general import (check_device,
 from clm_gs_tpu_torch.utils.logger import RunLogger
 from clm_gs_tpu_torch.utils.timer import End2endTimer, Timer
 
-STRATEGIES = {"no_offload": no_offload, "naive_offload": naive_offload}
+STRATEGIES = {"no_offload": no_offload, "naive_offload": naive_offload,
+              "clm_offload": clm_offload}
 
 
 def _grow_opt(opt: Optional[AdamState], new_cap: int) -> Optional[AdamState]:
     """Moments padded with zero rows to `new_cap`: new buffers, mu and nu
     distinct. None (moments kept by the strategy) stays None; the JAX
-    package's training loop dereferences it there (train.py:517 -> :65)."""
+    package's training loop dereferences it there (train.py:517 -> :65). The
+    (1, 48) SH placeholder of clm_offload stays (1, 48); the JAX package pads
+    it by the added rows (train.py:59-66)."""
     if opt is None:
         return None
+    C = opt.mu.xyz.shape[0]
 
     def pad(x):
-        return torch.cat([x, x.new_zeros((new_cap - x.shape[0],) + x.shape[1:])])
+        if x.shape[0] != C:
+            return x
+        return torch.cat([x, x.new_zeros((new_cap - C,) + x.shape[1:])])
 
     return AdamState(
         mu=G.GaussianParams(*(pad(a) for a in opt.mu.astuple())),
@@ -83,11 +94,9 @@ def _host_gb() -> float:
 def training(cfg: Config, device="cuda"):
     """Train per `cfg`; returns the final (state, opt_state). Under
     naive_offload the state's parameters are uploaded from the host copy and
-    opt_state is None (the moments were on the host)."""
-    if cfg.strategy not in STRATEGIES:
-        raise NotImplementedError(
-            f"the {cfg.strategy} strategy is not ported yet (ROADMAP.md, "
-            "modules to port); pass --no_offload or --naive_offload")
+    opt_state is None (the moments were on the host); under clm_offload the
+    SH rows are uploaded from the host buffer and opt_state's SH moments are
+    the (1, 48) placeholder."""
     device = check_device(device)
     with contextlib.ExitStack() as closing:
         return _training(cfg, device, closing)
@@ -106,6 +115,7 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
     strategy_name = cfg.strategy
     strategy = STRATEGIES[strategy_name]
     naive = strategy_name == "naive_offload"
+    clm = strategy_name == "clm_offload"
     scene = Scene(cfg, logger, device=device)
     # the loop owns the state; the scene holds it only while saving
     state, scene.gaussians = scene.gaussians, None
@@ -122,6 +132,12 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
         logger.write(f"Resumed from {ckpt} at iteration {start_iter}\n")
         if cfg.debug.drop_duplicate_gaussians_coeff != 1.0:
             # resize on resume; the optimizer restarts cold
+            if state.params.sh.shape[0] != state.capacity:
+                # a clm checkpoint: its SH rows are in strategy_extra.npz;
+                # the host buffers are rebuilt from the resized state below
+                with np.load(os.path.join(ckpt, "strategy_extra.npz")) as z:
+                    sh = torch.from_numpy(z["clm.sh_host"]).to(device)
+                state = replace(state, params=replace(state.params, sh=sh))
             state = G.resize_rows(state, cfg.debug.drop_duplicate_gaussians_coeff)
             opt_state = init_adam(state.params)
             logger.write(
@@ -140,12 +156,12 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
     adam_cfg = AdamConfig().scaled(bsz, cfg.opt.lr_scale_mode)
 
     strategy_ctx = None
+    extra_path = os.path.join(ckpt, "strategy_extra.npz") if ckpt else ""
     if naive:
         opt_state = None
         strategy_ctx = strategy.make_context(cfg, state, adam_cfg)
         # a resized resume restarts the optimizer and changes the row count:
         # the saved moments no longer apply
-        extra_path = os.path.join(ckpt, "strategy_extra.npz") if ckpt else ""
         if (extra_path and os.path.exists(extra_path)
                 and cfg.debug.drop_duplicate_gaussians_coeff == 1.0):
             with np.load(extra_path) as z:
@@ -153,6 +169,31 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
         # the parameters live on the host; the card holds a copy only within
         # a batch, an eval or a densification round
         state = strategy.strip_device_params(state)
+    elif clm:
+        if not ckpt:
+            # the loader put the SH rows on the host; they never reach the card
+            strategy_ctx = strategy.make_context_from_host(cfg, scene.host_sh,
+                                                           adam_cfg, device)
+            opt_state = init_adam(state.params)  # 4 card groups + placeholder
+        elif state.params.sh.shape[0] != state.capacity:
+            # a clm checkpoint: the card moments are restored, the SH rows
+            # and their moments come from strategy_extra.npz
+            if not os.path.exists(extra_path):
+                raise FileNotFoundError(f"{extra_path}: a clm checkpoint needs it")
+            strategy_ctx = strategy.make_context_empty(cfg, state.capacity,
+                                                       adam_cfg, device)
+            with np.load(extra_path) as z:
+                strategy_ctx = strategy.restore_extra(strategy_ctx, dict(z))
+        else:  # a full state: another strategy's checkpoint, or resized
+            strategy_ctx = strategy.make_context(cfg, state, adam_cfg)
+            state = strategy.strip_device_sh(state)
+            opt_state = init_adam(state.params)
+        scene.host_sh = None  # the context owns the host rows
+        closing.callback(strategy_ctx.close)
+        if cfg.tpu.pinned_host:
+            logger.write("pinned_host: the host SH buffer is pinned already; the "
+                         "card-side gather from mapped memory is not ported, so "
+                         "rows are gathered on the host\n")
 
     def scalar(v, dev=device):
         return torch.tensor(v, dtype=torch.float32, device=dev)
@@ -164,7 +205,8 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
         "log_scale": scalar(cfg.opt.scaling_lr * cfg.opt.lr_scale_pos_and_scale
                             * lr_scale, lr_dev),
         "quat": scalar(cfg.opt.rotation_lr * lr_scale, lr_dev),
-        "sh": sh_column_lr(cfg.opt.feature_lr, device=lr_dev) * lr_scale,
+        "sh": sh_column_lr(cfg.opt.feature_lr,
+                           device="cpu" if naive or clm else device) * lr_scale,
     }
     background = scalar([1.0, 1.0, 1.0] if cfg.model.white_background
                         else [0.0, 0.0, 0.0])
@@ -193,9 +235,9 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
         return float(torch.abs(xyz).sum())
 
     def full_state():
-        """The state with its parameters on the device (naive_offload:
-        uploaded from the host copy)."""
-        return strategy.materialize(state, strategy_ctx) if naive else state
+        """The state with its parameters on the device (naive_offload and
+        clm_offload: uploaded from the host copy)."""
+        return strategy.materialize(state, strategy_ctx) if naive or clm else state
 
     check_frozen = cfg.debug.stop_update_param and cfg.debug.stop_update_param_assert
     frozen_param_sum = frozen_probe() if check_frozen else None
@@ -227,7 +269,7 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
                 and profiler is None):
             profiler = _start_profiler(device)
         timers.start("train_step")
-        if naive:
+        if naive or clm:
             state, opt_state, strategy_ctx, out = strategy.train_one_batch(
                 state, opt_state, strategy_ctx, cb, gt, sh_degree, lrs, adam_cfg,
                 background, W, H, cfg, timers=timers)
@@ -258,15 +300,26 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
                     raise RuntimeError(
                         f"stop_update_param violated: {cur} != {frozen_param_sum}")
             timers.stop("log")
+        if clm and ((iteration - 1) % cfg.aux.log_interval < bsz
+                    or cfg.bench.log_cpu_adam_trailing_overhead):
+            nb = strategy_ctx.n_batches
+            trail = strategy_ctx.trailing_s / nb
+            work = strategy_ctx.host_work_s / nb
+            hidden = max(0.0, 1.0 - trail / work) if work > 0 else 1.0
+            logger.write(f"clm overlap: host work {work * 1e3:.1f} ms/batch, "
+                         f"trailing {trail * 1e3:.1f} ms/batch, "
+                         f"comm-hidden {hidden * 100:.0f}%\n")
 
         # ---- eval ----
         if any(check_update_at_this_iter(iteration, bsz, ti, 0) or iteration == ti
                for ti in cfg.aux.test_iterations):
             e2e.pause(sync=out.losses)
             timers.start("eval")
-            # naive_offload: one upload for the whole eval, freed after it
-            training_report(cfg, scene, full_state(), sh_degree, background,
-                            iteration, logger, device)
+            # naive_offload: one upload for the whole eval, freed after it;
+            # clm_offload: each camera gathers its visible SH rows
+            training_report(cfg, scene, (state, strategy_ctx) if clm else full_state(),
+                            sh_degree, background, iteration, logger, device,
+                            strategy)
             timers.stop("eval")
             e2e.start()
 
@@ -303,14 +356,18 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
                     if naive:
                         strategy_ctx = strategy.grow_context(strategy_ctx,
                                                              new_cap, cfg)
+                    elif clm:
+                        strategy_ctx = strategy.grow_context(
+                            strategy_ctx, new_cap, cfg, timers=timers)
                     timers.stop("grow_capacity", sync=state.params.xyz)
                 size_prune = iteration > cfg.opt.opacity_reset_interval
                 timers.start("densify")
                 state, opt_state, info = Dn.densify_and_prune(
                     state, opt_state, generator, cfg.opt.densify_grad_threshold,
                     cfg.opt.min_opacity, spatial, cfg.opt.percent_dense, size_prune,
+                    include_sh=not clm,
                 )
-                if naive:
+                if naive or clm:
                     strategy_ctx = strategy.post_densify(strategy_ctx, state, info)
                 timers.stop("densify", sync=state.params.xyz)
                 timers.start("log")
@@ -320,7 +377,7 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
             if will_reset:
                 timers.start("reset_opacity")
                 state, opt_state = Dn.reset_opacity(state, opt_state)
-                if naive:
+                if naive or clm:
                     strategy_ctx = strategy.post_opacity_reset(strategy_ctx, state)
                 timers.stop("reset_opacity", sync=state.params.opacity)
                 logger.write(f"iteration[{iteration},{iteration+bsz}) reset_opacity\n")
@@ -333,7 +390,9 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
         if save_hits and not cfg.debug.do_not_save:
             e2e.pause(sync=out.losses)
             timers.start("save")
-            scene.gaussians = full_state()
+            # clm_offload: the host SH buffer itself, never the card
+            scene.gaussians = (strategy.materialize_host(state, strategy_ctx)
+                               if clm else full_state())
             scene.save(save_hits[-1], logger)
             scene.gaussians = None
             timers.stop("save")
@@ -350,8 +409,12 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
                     init_adam(strategy.host_params(strategy_ctx)), generator,
                     strategy_extra=strategy.checkpoint_extra(strategy_ctx))
             else:
-                save_checkpoint(cfg.model.model_path, iteration + bsz, state,
-                                opt_state, generator)
+                # clm_offload: the stripped state and card moments, and the
+                # host SH rows and moments beside them
+                save_checkpoint(
+                    cfg.model.model_path, iteration + bsz, state, opt_state,
+                    generator, strategy_extra=strategy.checkpoint_extra(strategy_ctx)
+                    if clm else None)
             timers.stop("checkpoint")
             logger.write(f"[ITER {iteration}] Saving Checkpoint\n")
             e2e.start()
@@ -390,8 +453,10 @@ def _stop_profiler(prof, cfg, logger):
 
 @torch.no_grad()
 def training_report(cfg, scene, state, sh_degree, background, iteration, logger,
-                    device):
-    """Eval: mean L1 and PSNR over the test cameras and a train subset."""
+                    device, strategy=no_offload):
+    """Eval: mean L1 and PSNR over the test cameras and a train subset,
+    through `strategy`'s eval renders (`state` is what they take). A
+    strategy without `eval_batch` (clm_offload) renders each camera alone."""
     W, H = scene.width, scene.height
     # --eval_res_cap: render and compare at an integer-downsampled resolution
     res_f = 1
@@ -405,6 +470,7 @@ def training_report(cfg, scene, state, sh_degree, background, iteration, logger,
         ("train", scene.train_cameras[:n_eval_train]),
     ]
     eval_bsz = 8
+    batch_fn = getattr(strategy, "eval_batch", None)
     for name, cams in configs:
         if not cams:
             continue
@@ -418,8 +484,8 @@ def training_report(cfg, scene, state, sh_degree, background, iteration, logger,
                 return
             cb_b = CameraBatch(viewmats=torch.stack(pend_vm), Ks=torch.stack(pend_K),
                                camtoworlds=torch.stack(pend_c2w), width=We, height=He)
-            bl1, bps = no_offload.eval_batch(state, cb_b, torch.stack(pend_gt),
-                                             sh_degree, background, We, He)
+            bl1, bps = batch_fn(state, cb_b, torch.stack(pend_gt), sh_degree,
+                               background, We, He)
             l1s.extend(bl1.tolist())
             psnrs.extend(bps.tolist())
             for lst in (pend_vm, pend_K, pend_c2w, pend_gt):
@@ -434,14 +500,15 @@ def training_report(cfg, scene, state, sh_degree, background, iteration, logger,
                 Ke[:2] /= res_f
                 gtj = gtj[:, : He * res_f, : We * res_f].reshape(
                     3, He, res_f, We, res_f).mean(dim=(2, 4))
-            if saved < cfg.aux.num_save_images_during_eval:
-                img, _ = no_offload.eval_one_cam(
+            if saved < cfg.aux.num_save_images_during_eval or batch_fn is None:
+                img, _ = strategy.eval_one_cam(
                     state, cb.viewmats[0], Ke, cb.camtoworlds[0], sh_degree,
                     background, We, He)
                 l1s.append(float(torch.mean(torch.abs(img - gtj))))
                 psnrs.append(float(psnr_fn(torch.clamp(img, 0, 1), gtj)))
-                _save_eval_image(cfg, iteration, name, cam, img, gtj)
-                saved += 1
+                if saved < cfg.aux.num_save_images_during_eval:
+                    _save_eval_image(cfg, iteration, name, cam, img, gtj)
+                    saved += 1
             else:
                 pend_vm.append(cb.viewmats[0])
                 pend_K.append(Ke)

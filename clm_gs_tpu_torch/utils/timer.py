@@ -1,9 +1,10 @@
 """Timers (clm_gs_tpu/utils/timer.py).
 
 `Timer` sums keyed spans of host time. Given a `sync` tensor on the card, a
-span's edge first waits for the card (`torch.cuda.synchronize`), so the span
-covers the device work it launched; it does so only when enabled, so a run
-without --enable_timer never waits. `End2endTimer` accumulates wall-clock
+span's edge first waits for the card's current stream, so the span covers
+the device work it launched there (and any copy that stream waits for, but
+not the rest of a side stream's queue); it does so only when enabled, so a
+run without --enable_timer never waits. `End2endTimer` accumulates wall-clock
 time outside the eval and save windows.
 """
 
@@ -17,9 +18,9 @@ import torch
 
 
 def drain(x) -> None:
-    """Wait for the card when `x` is a tensor on it."""
+    """Wait for the current stream of the card when `x` is a tensor on it."""
     if torch.is_tensor(x) and x.is_cuda:
-        torch.cuda.synchronize(x.device)
+        torch.cuda.current_stream(x.device).synchronize()
 
 
 class Timer:

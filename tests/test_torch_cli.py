@@ -461,15 +461,6 @@ def test_timer_spans(scene, tmp_path, enabled):
                      "reset_opacity": 1, "save": 1, "checkpoint": 1}
 
 
-@pytest.mark.parametrize("strategy", ["clm_offload", None])
-def test_strategies_not_ported_raise(scene, tmp_path, strategy):
-    argv = ["-s", scene, "-m", str(tmp_path / "x")] + (
-        [f"--{strategy}"] if strategy else [])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmain(argv, device="cpu")
-    assert not os.path.exists(tmp_path / "x")
-
-
 def test_profile_background_and_saved_eval_images(scene, tmp_path):
     """--profile writes a torch.profiler trace; --random_background draws from
     the run's generator; saved eval images at --eval_res_cap's size."""

@@ -177,3 +177,123 @@ def test_failed_host_build_raises(tmp_path):
     with pytest.raises(RuntimeError, match="failed"):
         _build.build_host("broken_adam", src_dir=tmp_path)
     assert not (_build.BUILD / "libbroken_adam.so").exists()
+
+
+# ---- the clm_offload bindings: each against its plain twin and the JAX
+# package's binding (tests/test_aux.py), exactly ----
+
+def _same(got, *wants):
+    for want in wants:
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 12])
+def test_find_tour_matches_plain_and_reference(n):
+    reference_native()
+    rng = np.random.RandomState(n)
+    a = rng.randint(0, 1000, (n, n))
+    dist = (a + a.T).astype(np.int32)
+    got = tnative.find_tour(torch.from_numpy(dist), time_budget_s=10.0)
+    assert got.dtype == torch.int32 and sorted(got.tolist()) == list(range(n))
+    _same(got, tnative.find_tour_plain(torch.from_numpy(dist)),
+          jnative.find_tour(dist, time_budget_s=10.0))
+
+
+def test_gather_and_scatter_rows_match_plain_and_reference():
+    reference_native()
+    rng = np.random.RandomState(SEED)
+    buf = rng.normal(size=(N, 48)).astype(np.float32)
+    idx = rng.choice(N, 5000, replace=False).astype(np.int32)
+    tb = torch.from_numpy(buf.copy())
+    out = torch.empty(5000, 48)
+    assert tnative.gather_rows(tb, torch.from_numpy(idx), out=out) is out
+    _same(out, tnative.gather_rows_plain(tb, idx), jnative.gather_rows(buf, idx))
+    rows = rng.normal(size=(5000, 48)).astype(np.float32)
+    for accumulate in (True, False):
+        t, p, j = tb.clone(), tb.clone(), buf.copy()
+        tnative.scatter_add_rows(t, torch.from_numpy(rows), torch.from_numpy(idx),
+                                 accumulate)
+        tnative.scatter_add_rows_plain(p, torch.from_numpy(rows), idx, accumulate)
+        jnative.scatter_add_rows(j, rows, idx, accumulate)
+        _same(t, p, j)
+
+
+def test_finish_set_primitives_match_plain_and_reference():
+    """stamp_rows, nonzero_stamp (both modes) and counting_sort_perm."""
+    reference_native()
+    rng = np.random.RandomState(2)
+    C, B = 300_001, 9
+    t_lu = torch.full((C,), -1, dtype=torch.int16)
+    p_lu, j_lu = t_lu.clone(), np.full(C, -1, np.int16)
+    for s in range(B):
+        ids = np.sort(rng.choice(C, 40_000, replace=False)).astype(np.int32)
+        tnative.stamp_rows(t_lu, torch.from_numpy(ids), s)
+        tnative.stamp_rows_plain(p_lu, ids, s)
+        assert jnative.stamp_rows(j_lu, ids, s)
+    _same(t_lu, p_lu, j_lu)
+    alive = rng.rand(C) < 0.5
+    t_alive = torch.from_numpy(alive)
+    for mode in (0, 1):
+        got = tnative.nonzero_stamp(t_lu, t_alive, mode)
+        assert got.dtype == torch.int32
+        _same(got, tnative.nonzero_stamp_plain(t_lu, t_alive, mode),
+              jnative.nonzero_stamp(j_lu, alive, mode))
+    keys = rng.randint(0, 17, 100_001).astype(np.int16)
+    perm, counts = tnative.counting_sort_perm(torch.from_numpy(keys), 17)
+    p_perm, p_counts = tnative.counting_sort_perm_plain(torch.from_numpy(keys), 17)
+    j_perm, j_counts = jnative.counting_sort_perm(keys, 17)
+    assert perm.dtype == torch.int32 and counts.dtype == torch.int64
+    _same(perm, p_perm, j_perm)
+    _same(counts, p_counts, j_counts)
+
+
+@pytest.mark.parametrize("na,nb", [(0, 5), (5, 0), (0, 0), (1000, 1300), (4096, 4096)])
+def test_classify_sorted_matches_plain_and_reference(na, nb):
+    reference_native()
+    rng = np.random.RandomState(11 + na + nb)
+    a = np.sort(rng.choice(10_000, size=na, replace=False)).astype(np.int32)
+    b = np.sort(rng.choice(10_000, size=nb, replace=False)).astype(np.int32)
+    got = tnative.classify_sorted(torch.from_numpy(a), torch.from_numpy(b))
+    plain = tnative.classify_sorted_plain(torch.from_numpy(a), torch.from_numpy(b))
+    for g, p, j in zip(got, plain, jnative.classify_sorted(a, b)):
+        assert g.dtype == torch.int32
+        _same(g, p, j)
+
+
+def _bad_binding_calls():
+    """Calls that hand a library a buffer it would misread, another dtype or
+    shape, or an id out of range."""
+    buf, ids = torch.zeros(64, 48), torch.arange(8, dtype=torch.int32)
+    lu = torch.full((64,), -1, dtype=torch.int16)
+    return {
+        "gather_transposed": lambda: tnative.gather_rows(torch.zeros(48, 64).T, ids),
+        "gather_float64": lambda: tnative.gather_rows(buf.double(), ids),
+        "gather_id_out_of_range": lambda: tnative.gather_rows(buf, torch.tensor([0, 64])),
+        "gather_out_shape": lambda: tnative.gather_rows(buf, ids, out=torch.empty(7, 48)),
+        "scatter_rows_shape": lambda: tnative.scatter_add_rows(buf, torch.ones(7, 48), ids),
+        "scatter_column_slice": lambda: tnative.scatter_add_rows(
+            torch.zeros(64, 96)[:, :48], torch.ones(8, 48), ids),
+        "scatter_negative_id": lambda: tnative.scatter_add_rows(
+            buf, torch.ones(2, 48), torch.tensor([-1, 3])),
+        "stamp_int32_stamps": lambda: tnative.stamp_rows(lu.int(), ids, 0),
+        "stamp_id_out_of_range": lambda: tnative.stamp_rows(lu, torch.tensor([64]), 0),
+        "stamp_pos_outside_int16": lambda: tnative.stamp_rows(lu, ids, 2**15),
+        "nonzero_alive_uint8": lambda: tnative.nonzero_stamp(
+            lu, torch.ones(64, dtype=torch.uint8), 1),
+        "nonzero_no_alive": lambda: tnative.nonzero_stamp(lu, None, 1),
+        "nonzero_mode": lambda: tnative.nonzero_stamp(lu, None, 2),
+        "sort_key_out_of_range": lambda: tnative.counting_sort_perm(
+            torch.tensor([0, 3], dtype=torch.int16), 3),
+        "sort_int32_keys": lambda: tnative.counting_sort_perm(torch.tensor([0, 1]), 3),
+        "classify_int64": lambda: tnative.classify_sorted(torch.arange(3), ids),
+        "classify_strided": lambda: tnative.classify_sorted(ids[::2], ids),
+        "tour_not_square": lambda: tnative.find_tour(torch.zeros(3, 4, dtype=torch.int32)),
+        "tour_float": lambda: tnative.find_tour(torch.zeros(3, 3)),
+        "tour_on_numpy": lambda: tnative.find_tour(np.zeros((3, 3), np.int32)),
+    }
+
+
+@pytest.mark.parametrize("kind", sorted(_bad_binding_calls()))
+def test_binding_checks_raise(kind):
+    with pytest.raises(ValueError):
+        _bad_binding_calls()[kind]()
