@@ -5,7 +5,7 @@
 
 Phases, one JSON line each:
   1. device: the card's name and power limit (nvidia-smi), then an nvcc build
-     of the four kernels from csrc/, one process per source.
+     of the five kernels from csrc/, one process per source.
   2. kernels_mid: each kernel against its plain PyTorch version at a mid
      size (20,000 Gaussians, one 640x480 camera), and the kernel-path
      rasterizer against the dense oracle on a small scene.
@@ -31,13 +31,21 @@ Phases, one JSON line each:
      was freed).
   6b. clm_step, on the state phase 6 leaves: from the same seeded moments,
      clm_offload.train_one_batch (SH rows and moments on the host, the
-     camera order of csrc/host/fast_tsp.cpp) with retention and without,
-     against one no_offload.train_step: losses (sorted, as the TSP reorders
-     the cameras), parameter moves and first moments, retention against the
-     full re-gather, the bytes of the clm state and card moments against
-     no_offload's (at least the SH parameters' and their two moments'
-     less), and for each: a first batch, a warm one (batch time, bytes each
-     way, the overlap meter) and one under --enable_timer's spans.
+     camera order of csrc/host/fast_tsp.cpp) with retention, without it,
+     and with retention and --pinned_host's card-side gather
+     (csrc/pinned_gather.cu), against one no_offload.train_step: losses
+     (sorted, as the TSP reorders the cameras), parameter moves and first
+     moments, retention against the full re-gather, the card-side gather
+     against the host gather to the bit (losses, parameters, first moments,
+     the host SH rows) with the same bytes but the arriving rows' ids, the
+     bytes of the clm state and card moments against no_offload's (at least
+     the SH parameters' and their two moments' less), and for each: a first
+     batch, five warm ones taken in turns with the other variants (the
+     median's batch time, bytes each way, the overlap meter) and one under
+     --enable_timer's spans. Then the gather kernel against its
+     plain version on camera 0's visible rows, bit-equal, timed beside the
+     host-staged fetch it replaces and bounded by the pinned host-to-card
+     copy rate measured in the same call.
   7. cli: the bench scene's 1M Gaussians written as a COLMAP scene (32
      cameras of 1237x822, utils/synthetic_colmap.py). A short run to the
      first densification round reports the rows each gradient threshold
@@ -63,8 +71,19 @@ Phases, one JSON line each:
      state, each kernel's launches, a device peak below phase 7's (beside
      phase 8's), the `clm overlap:` line, the bytes each way a batch and the
      clm spans; then a resume from its checkpoint with `python -m
-     clm_gs_tpu_torch.train --clm_offload`, which restores the host SH rows
-     and moments from strategy_extra.npz. The kernels line follows it.
+     clm_gs_tpu_torch.train --clm_offload --pinned_host` (through runpy,
+     which then prints the run's kernel launches), which restores the host
+     SH rows and moments from strategy_extra.npz into a new pinned buffer
+     that the card gathers from: its log says so, its test PSNR rises and
+     the gather kernel launched.
+ 10. trajectory: `python -m clm_gs_tpu_torch.render_trajectory` (through
+     runpy) on phase 9's final PLY with phase 7's training cameras, 8
+     frames of 1280x720 and a top-down view, under --no_offload and
+     --clm_offload: every frame with structure, consecutive frames apart,
+     the two runs' frames within one level, frame 0 of both as floats in
+     this process within 1e-5 relative and 1e-6 absolute, frames/s, peak
+     device memory and the forward and fill launches of each run. The
+     kernels line follows it.
 Any failed check exits 1. The last line is the device summary. Without CUDA,
 or without the package beside it, the script exits 1 and prints no result.
 """
@@ -109,6 +128,20 @@ KERNELS = {
     "rasterize_bwd": ("clm_gs_tpu_torch/csrc/rasterize_bwd.cu",
                       "clm_gs_tpu/ops/rasterize.py:372"),
 }
+# The --pinned_host SH gather: a kernel of the port whose JAX counterpart is
+# an XLA host-space gather program, not a Pallas kernel.
+GATHER = "pinned_gather"
+GATHER_SOURCE = ("clm_gs_tpu_torch/csrc/pinned_gather.cu", "clm_gs_tpu/utils/hostmem.py:117")
+# `python -m MODULE ARGS...` as runpy runs it, then one JSON line on stdout:
+# the kernels the run launched and its peak device memory
+RUN_MODULE = """
+import json, runpy, sys, torch
+from clm_gs_tpu_torch import _build
+sys.argv = sys.argv[1:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+print(json.dumps({"launches": dict(_build.LAUNCHES),
+                  "peak_device_bytes": torch.cuda.max_memory_allocated()}))
+"""
 # stated tolerances, kernel against plain version
 TOL = {
     # termination near T = 1e-4 can flip by one instance where expf and
@@ -270,21 +303,69 @@ def run(torch, report):
         torch.cuda.empty_cache()
         report["clm"] = clm_cli_run(torch, work, colmap, report["cli"], report["naive"])
         emit(report["clm"])
+        torch.cuda.empty_cache()
+        report["trajectory"] = trajectory_run(torch, work, colmap)
+        emit(report["trajectory"])
 
+    emit(summary(report))
     launches = report["full"]["launches"]
+
+    def other_launches(k):
+        return {"cli_launches": report["cli"]["launches"].get(k, 0),
+                "naive_step_launches": report["naive_step"]["launches"].get(k, 0),
+                "naive_launches": report["naive"]["launches"].get(k, 0),
+                "clm_step_launches": report["clm_step"]["launches"].get(k, 0),
+                "clm_step_card_gather_launches":
+                    report["clm_step"]["card_gather_launches"].get(k, 0),
+                "clm_launches": report["clm"]["launches"].get(k, 0),
+                "clm_pinned_resume_launches":
+                    report["clm"]["resume"]["launches"].get(k, 0),
+                "trajectory_launches": {f: r["launches"].get(k, 0) for f, r in
+                                        report["trajectory"]["runs"].items()}}
+
+    g = report["clm_step"]["pinned_gather"]
     emit({"kernels": [
         {"name": k, "status": "ported", "route": "cuda", "source": KERNELS[k][0],
-         "replaces": KERNELS[k][1], "launches": launches.get(k, 0),
-         "cli_launches": report["cli"]["launches"].get(k, 0),
-         "naive_step_launches": report["naive_step"]["launches"].get(k, 0),
-         "naive_launches": report["naive"]["launches"].get(k, 0),
-         "clm_step_launches": report["clm_step"]["launches"].get(k, 0),
-         "clm_launches": report["clm"]["launches"].get(k, 0),
+         "replaces": KERNELS[k][1], "launches": launches.get(k, 0), **other_launches(k),
          "max_abs_err": full[k]["max_abs_err"], "ms": full[k]["ms"],
          "plain_ms": full[k]["plain_ms"], "bound_ms": full[k]["bound_ms"],
          "bound_by": full[k]["bound_by"], "library_ms": full[k]["library_ms"]}
         for k in KERNELS
+    ] + [
+        # its main path is clm_step's card-gather variant (first batch)
+        {"name": GATHER, "status": "ported", "route": "cuda", "source": GATHER_SOURCE[0],
+         "replaces": GATHER_SOURCE[1],
+         "launches": report["clm_step"]["card_gather_launches"].get(GATHER, 0),
+         **other_launches(GATHER), "max_abs_err": g["max_abs_err"], "ms": g["ms"],
+         "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
+         "library_ms": None, "host_staged_fetch_ms": g["host_staged_fetch_ms"],
+         "h2d_bytes_per_s": g["h2d_bytes_per_s"], "rows": g["rows"]}
     ]})
+
+
+def summary(report):
+    """The numbers of the long phase lines that a reader compares across
+    calls, on one short line near the end of the output."""
+    step = report["clm_step"]
+    runs = step["runs"]
+    clm = report["clm"]
+    return {"phase": "summary", "clm_step": {
+        "warm_batch_s": {k: r["warm"]["batch_s"] for k, r in runs.items()},
+        "warm_batches_s": {k: r["warm"]["warm_batches_s"] for k, r in runs.items()},
+        "timed_batch_s": {k: r["timed"]["batch_s"] for k, r in runs.items()},
+        "warm_h2d_d2h_bytes": {k: [r["warm"]["h2d_bytes"], r["warm"]["d2h_bytes"]]
+                               for k, r in runs.items()},
+        "warm_trailing_s": {k: r["warm"]["trailing_s"] for k, r in runs.items()},
+        "spans_ms_host_vs_card_gather": step["spans_ms_host_vs_card_gather"],
+        "card_gather_equal_to_host_gather": all(
+            step["card_gather_equal_to_host_gather"].values()),
+        "pinned_gather": step["pinned_gather"]},
+        "clm_it_per_s": clm["it_per_s"], "cli_it_per_s": report["cli"]["it_per_s"],
+        "naive_it_per_s": report["naive"]["it_per_s"],
+        "clm_pinned_resume": {k: clm["resume"][k] for k in ("end2end", "test_psnr", "launches")},
+        "trajectory": {f: {k: r[k] for k in ("frames_per_s", "render_readback_s", "s",
+                                              "peak_device_bytes")}
+                       for f, r in report["trajectory"]["runs"].items()}}
 
 
 def _bound(bytes_, flops):
@@ -1146,6 +1227,11 @@ SH_COLS = 48
 GROUPS = ("xyz", "opacity", "log_scale", "quat", "sh")
 CLM_SPANS = ("clm.filters", "clm.order", "clm.fetch_h2d", "clm.micro", "clm.advance",
              "clm.d2h_scatter")
+# clm_step's variants: (name, retention, --pinned_host)
+CLM_VARIANTS = (("retention", True, False), ("full_regather", False, False),
+                ("card_gather", True, True))
+# warm batches of each variant, in turns; the warm figures are their median
+CLM_WARM_TURNS = 5
 # In a fresh process (the caching host allocator holds no block yet): the
 # seconds to allocate a pinned (rows, 48) float32 buffer, as grow_context
 # does, and to zero it; then the same again, served from the cache.
@@ -1196,11 +1282,13 @@ def _moves_against(torch, got_params, got_mu, p0, mu0, moves_no, mu_no):
 
 def clm_step(torch, box, lrs, adam_cfg):
     """The state phase 6 leaves in `box`, through one no_offload.train_step
-    and clm_offload.train_one_batch with and without retention, all from
-    the same seeded moments (the SH ones on the host for clm). For each
-    retention setting three batches from that start on one context: the
-    first (staging buffers allocated), a warm one (times, bytes, overlap
-    meter) and one with --enable_timer's spans."""
+    and clm_offload.train_one_batch with retention, without it, and with
+    retention and --pinned_host's card-side gather, all from the same seeded
+    moments (the SH ones on the host for clm). For each variant, batches
+    from that start on one context: the first (staging buffers allocated),
+    CLM_WARM_TURNS warm ones in turns with the other variants (the median's
+    times, bytes, overlap meter) and one with --enable_timer's spans. Then the gather kernel against its plain version
+    and the host-staged fetch it replaces on camera 0's visible rows."""
     from dataclasses import replace
 
     from clm_gs_tpu_torch import _build
@@ -1242,8 +1330,17 @@ def clm_step(torch, box, lrs, adam_cfg):
     clm_bytes = _tensor_bytes(torch, s) + _tensor_bytes(torch, o)
     host_lrs = dict(lrs, sh=lrs["sh"].cpu())
 
+    arriving = []  # rows arriving at each transition of a batch
+    classify = clm._classify_transition
+
+    def counted(prev_ids, next_ids):
+        out = classify(prev_ids, next_ids)
+        arriving.append(len(out[3]))
+        return out
+
     def batch(cfg, ctx, timed):
         """One batch from the seeded start, the context reset to it."""
+        arriving.clear()
         ctx.sh_host.copy_(p0["sh"])
         ctx.sh_grad_host.zero_()
         ctx.adam.exp_avg, ctx.adam.exp_avg_sq = mu0["sh"].clone(), sh_nu0.clone()
@@ -1273,28 +1370,68 @@ def clm_step(torch, box, lrs, adam_cfg):
             "trailing_s": ctx.trailing_s, "scatter_work_s": ctx.scatter_work_s,
             "adam_work_s": ctx.adam_work_s,
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
-            "launches": dict(_build.LAUNCHES),
+            "launches": dict(_build.LAUNCHES), "arriving_rows": sum(arriving),
         }
         if timed:
             run["span_ms"] = {k: timers.sums[k] * 1e3 for k in CLM_SPANS if k in timers.sums}
             run["span_calls"] = {k: timers.counts[k] for k in CLM_SPANS
                                  if k in timers.counts}
-        return run, params
+        return run, params, mu, losses
 
-    runs, finals = {}, {}
-    for retention in (True, False):
-        cfg = Config()
+    # every variant's first batch, then the warm batches of the variants in
+    # turns (forward, then reverse order), then each one's timed batch: a
+    # batch's time depends on the host's other load, which drifts
+    cfgs, ctxs = {}, {}
+    for key, retention, pinned in CLM_VARIANTS:
+        cfg = cfgs[key] = Config()
         cfg.aux.clm_offload = True
         cfg.tpu.retention = retention
+        cfg.tpu.pinned_host = pinned
         init_config(cfg)
-        ctx = clm.make_context(cfg, state, adam_cfg)
-        try:
-            out = [batch(cfg, ctx, timed) for timed in (False, False, True)]
-        finally:
+    keys = list(cfgs)
+    clm._classify_transition = counted
+    try:
+        for key in keys:
+            ctxs[key] = clm.make_context(cfgs[key], state, adam_cfg)
+        first = {key: batch(cfgs[key], ctxs[key], False) for key in keys}
+        warm = {key: [] for key in keys}
+        for turn in range(CLM_WARM_TURNS):
+            for key in keys if turn % 2 == 0 else keys[::-1]:
+                warm[key].append(batch(cfgs[key], ctxs[key], False)[0])
+        timed = {key: batch(cfgs[key], ctxs[key], True)[0] for key in keys}
+    finally:
+        clm._classify_transition = classify
+        for ctx in ctxs.values():
             ctx.close()
-        key = "retention" if retention else "full_regather"
-        runs[key] = dict(zip(("first", "warm", "timed"), (r for r, _ in out)))
-        finals[key] = out[0][1]
+    runs, finals = {}, {}
+    for key in keys:
+        ws = sorted(warm[key], key=lambda r: r["batch_s"])
+        median = dict(ws[len(ws) // 2], warm_batches_s=[r["batch_s"] for r in warm[key]])
+        runs[key] = {"first": first[key][0], "warm": median, "timed": timed[key]}
+        finals[key] = first[key][1:]
+        for r in warm[key]:  # each warm batch from the same start: the same bytes
+            check(r["h2d_bytes"] == median["h2d_bytes"]
+                  and r["d2h_bytes"] == median["d2h_bytes"]
+                  and r["order_losses_sorted"] == median["order_losses_sorted"],
+                  f"clm_step {key}: warm batches differ")
+    gather = gather_check(torch, s, cb, w, h, ctxs)
+    del ctxs
+    # the card-side gather against the host gather, to the bit: a gather is
+    # a copy, and both paths sum the same rows in the same order
+    host_p, host_mu, host_l = finals["retention"]
+    card_p, card_mu, card_l = finals["card_gather"]
+    card_equal = {f: torch.equal(card_p[f], host_p[f]) and torch.equal(card_mu[f], host_mu[f])
+                  for f in GROUPS}
+    card_equal["losses"] = torch.equal(card_l, host_l)
+    bytes_vs_host = {when: {"h2d_minus_host": runs["card_gather"][when]["h2d_bytes"]
+                            - runs["retention"][when]["h2d_bytes"],
+                            "arriving_id_bytes": 4 * runs["card_gather"][when]["arriving_rows"],
+                            "d2h_minus_host": runs["card_gather"][when]["d2h_bytes"]
+                            - runs["retention"][when]["d2h_bytes"]}
+                     for when in ("first", "warm", "timed")}
+    spans_vs_host = {k: [runs["retention"]["timed"]["span_ms"].get(k),
+                         runs["card_gather"]["timed"]["span_ms"].get(k)] for k in CLM_SPANS}
+    finals = {k: v[0] for k, v in finals.items()}
     ret_rel = max(((finals["retention"][f] - finals["full_regather"][f]).abs().max()
                    / moves_no[f].abs().max().clamp_min(1e-30)).item() for f in GROUPS)
     result = {
@@ -1308,6 +1445,11 @@ def clm_step(torch, box, lrs, adam_cfg):
         "host_threads": host_threads(),
         "tol": [TOL["loss_rel"], TOL["step_rel"], TOL["retention_rel"]],
         "launches": runs["retention"]["first"]["launches"],
+        "card_gather_launches": runs["card_gather"]["first"]["launches"],
+        "card_gather_equal_to_host_gather": card_equal,
+        "card_gather_bytes_vs_host": bytes_vs_host,
+        "spans_ms_host_vs_card_gather": spans_vs_host,
+        "pinned_gather": gather,
     }
     for key, r in runs.items():
         for when, run in r.items():
@@ -1323,12 +1465,83 @@ def clm_step(torch, box, lrs, adam_cfg):
                   f"{run['launches']}")
     check(ret_rel <= TOL["retention_rel"],
           f"clm_step: retention against the full re-gather {ret_rel}")
+    check(all(card_equal.values()),
+          f"clm_step: the card-side gather differs from the host gather: {card_equal}")
+    for when, b in bytes_vs_host.items():
+        check(b["h2d_minus_host"] == b["arriving_id_bytes"] > 0 and b["d2h_minus_host"] == 0
+              and runs["card_gather"][when]["arriving_rows"]
+              == runs["retention"][when]["arriving_rows"],
+              f"clm_step: card-side gather bytes against the host gather ({when}): {b}")
+    for key, r in runs.items():
+        n = [run["launches"].get(GATHER, 0) for run in r.values()]
+        check(all(n) if key == "card_gather" else not any(n),
+              f"clm_step {key}: pinned_gather launches {n}")
     check(runs["retention"]["warm"]["h2d_bytes"] < runs["full_regather"]["warm"]["h2d_bytes"],
           "clm_step: retention moved no fewer bytes up than the full re-gather")
     check(no_bytes - clm_bytes >= 3 * (C - 1) * SH_COLS * 4,
           f"clm_step: the clm state and moments take {clm_bytes} bytes, "
           f"no_offload's {no_bytes}")
     return result
+
+
+def wall_ms(torch, fn, reps=5, warmup=1):
+    """Host-clock time per call of `fn`, which involves the host (a read
+    back, a host gather), from an idle card to the end of its work."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def gather_check(torch, state, cb, w, h, ctxs):
+    """csrc/pinned_gather.cu against its plain version on camera 0's visible
+    rows of `state` (the ids the first fetch gives it), read out of the
+    pinned SH table of the card-gather context: bit-equal, timed beside the
+    plain version and the host-staged fetch it replaces (native.gather_rows
+    into a pinned staging slot and its upload, the retention context's
+    `_fetch`). The bound is the rows' bytes over the pinned host-to-card
+    copy rate measured here (a non-blocking copy_ of the whole table), or
+    the ids' and output's bytes over HBM's, whichever is longer."""
+    from clm_gs_tpu_torch.strategies import clm_offload as clm
+    from clm_gs_tpu_torch.strategies import offload_common as oc
+    from clm_gs_tpu_torch.utils import hostmem
+
+    p = state.params
+    ids = oc.calculate_filters(p.xyz, p.quat, p.log_scale, state.alive, cb.viewmats[:1],
+                               cb.Ks[:1], w, h, 0.0).ids[0]
+    ids_host = ids.cpu()
+    table = ctxs["card_gather"].sh_host
+    host_ctx = ctxs["retention"]
+    check(table.is_pinned() and not host_ctx.card_gather, "clm_step: gather contexts")
+    k = hostmem.gather_rows_pinned_cuda(table, ids)
+    torch.cuda.synchronize()
+    plain = hostmem.gather_rows_pinned_plain(table, ids)
+    staged = clm._fetch(host_ctx, None, ids_host)
+    exact = torch.equal(k, plain) and torch.equal(staged, plain)
+    check(exact, "pinned_gather differs from its plain version or the host-staged fetch")
+    n = ids.numel()
+    dst = torch.empty(table.shape, dtype=table.dtype, device=ids.device)
+    copy_ms = time_ms(torch, lambda: dst.copy_(table, non_blocking=True), reps=5, warmup=1)
+    h2d_rate = table.numel() * 4 / (copy_ms * 1e-3)
+    del dst
+    row_bytes = n * 48 * 4
+    t_bus = row_bytes / h2d_rate * 1e3
+    t_hbm = (n * ids.element_size() + row_bytes) / PEAK_BYTES * 1e3
+    return {
+        "rows": n, "table_rows": table.shape[0], "row_bytes": row_bytes,
+        "max_abs_err": (k - plain).abs().max().item() if n else 0.0, "exact": exact,
+        "ms": time_ms(torch, lambda: hostmem.gather_rows_pinned_cuda(table, ids), reps=10),
+        "plain_ms": wall_ms(torch, lambda: hostmem.gather_rows_pinned_plain(table, ids)),
+        "host_staged_fetch_ms": wall_ms(torch, lambda: clm._fetch(host_ctx, None, ids_host)),
+        "h2d_copy_ms": copy_ms, "h2d_bytes_per_s": h2d_rate,
+        "bound_ms": max(t_bus, t_hbm), "bound_by": "bytes",
+        "bound_parts_ms": {"bus": t_bus, "hbm": t_hbm},
+        "library_ms": None,
+    }
 
 
 def clm_cli_run(torch, work, scene, cli, naive):
@@ -1391,16 +1604,20 @@ def clm_cli_run(torch, work, scene, cli, naive):
     extra_saved = Path(ckpt, "strategy_extra.npz").exists()
     out2 = f"{work}/clm_resume"
     t0 = time.perf_counter()
+    # with --pinned_host: the card gathers every SH row it fetches, through
+    # the CLI, restore_extra's new pinned buffer, the growth and eval
     res = subprocess.run(
-        [sys.executable, "-m", "clm_gs_tpu_torch.train", "-s", scene, "-m", out2,
-         "--decode_dataset_path", f"{work}/decoded", "--quiet",
-         "--start_checkpoint", str(ckpt), "--do_not_save"]
+        [sys.executable, "-c", RUN_MODULE, "clm_gs_tpu_torch.train", "-s", scene,
+         "-m", out2, "--decode_dataset_path", f"{work}/decoded", "--quiet",
+         "--start_checkpoint", str(ckpt), "--do_not_save", "--pinned_host"]
         + [a for a in args if a != "--enable_timer"] + ["--iterations", "120"],
         cwd=root, capture_output=True, text=True, check=False, timeout=600)
     resume_s = time.perf_counter() - t0
+    resume_run = _module_run(res)
     log2_text = (Path(out2, "python.log").read_text()
                  if Path(out2, "python.log").exists() else "")
     log2 = _parse_log(log2_text)
+    said = [ln for ln in log2_text.splitlines() if ln.startswith("pinned_host:")]
     # the growth's page-locking: this process's host cache still holds the
     # naive phase's freed pinned buffers, which grow_context reuses
     probe = subprocess.run([sys.executable, "-c", PIN_PROBE, str(cap_end)],
@@ -1439,7 +1656,9 @@ def clm_cli_run(torch, work, scene, cli, naive):
         "resume": {"rc": res.returncode, "s": resume_s, "strategy_extra": extra_saved,
                    "resumed": "Resumed from" in log2_text,
                    "end2end": log2["end2end"], "test_psnr": log2["test_psnr"],
-                   "densify_counts": log2["densify"]},
+                   "densify_counts": log2["densify"], "pinned_host_line": said,
+                   "launches": resume_run["launches"],
+                   "peak_device_bytes": resume_run["peak_device_bytes"]},
     }
     if res.returncode != 0:
         print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
@@ -1466,7 +1685,113 @@ def clm_cli_run(torch, work, scene, cli, naive):
           and last.startswith("end2end total_time:"),
           f"clm: the resumed call failed (rc {res.returncode}, strategy_extra.npz "
           f"{extra_saved}): {last}")
+    psnr2 = log2["test_psnr"]
+    check(len(said) == 1 and "card-side SH gather on" in said[0]
+          and "csrc/pinned_gather.cu" in said[0],
+          f"clm: the --pinned_host resume's log says {said}")
+    check(len(psnr2) >= 2 and psnr2[-1] > psnr2[0],
+          f"clm: the --pinned_host resume's test PSNR did not rise: {psnr2}")
+    check(resume_run["launches"].get(GATHER, 0) > 0
+          and all(resume_run["launches"].get(k, 0) > 0 for k in KERNELS),
+          f"clm: the --pinned_host resume's launches {resume_run['launches']}")
     return result
+
+
+# the trajectory phase: frames a run and the renderer's flags besides the
+# model, the scene, the output and the strategy (the default 1280x720)
+TRAJ_FRAMES = 8
+TRAJ_STRATEGIES = ("--no_offload", "--clm_offload")
+# frame 0's float images of the two strategies in one process
+# (tests/test_torch_clm.py::test_eval_one_cam_matches_the_full_render)
+TRAJ_RTOL, TRAJ_ATOL = 1e-5, 1e-6
+
+
+def trajectory_run(torch, work, scene):
+    """`python -m clm_gs_tpu_torch.render_trajectory` on the clm run's final
+    PLY in `work`, with the scene's training cameras, under --no_offload and
+    --clm_offload: 8 frames each with structure, the same within one level
+    between the two, frame 0's float images of the two in this process
+    within TRAJ_RTOL/TRAJ_ATOL, and the kernels each run launched."""
+    from pathlib import Path
+
+    import numpy as np
+    from PIL import Image
+
+    from clm_gs_tpu_torch import render_trajectory as RT
+
+    root = Path(__file__).resolve().parent
+    ply = f"{work}/clm/point_cloud/iteration_200/point_cloud.ply"
+    common = ["--load_ply_path", ply, "--source_path", scene,
+              "--num_frames", str(TRAJ_FRAMES)]
+    runs, frames = {}, {}
+    for flag in TRAJ_STRATEGIES:
+        out = f"{work}/traj{flag}"
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-c", RUN_MODULE, "clm_gs_tpu_torch.render_trajectory",
+             *common, "--out_dir", out, "--topdown", f"{out}.topdown.png", flag],
+            cwd=root, capture_output=True, text=True, check=False, timeout=300)
+        run_s = time.perf_counter() - t0
+        if res.returncode != 0:
+            print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
+        check(res.returncode == 0, f"trajectory {flag}: rc {res.returncode}")
+        done = [ln for ln in res.stderr.splitlines() if ln.startswith("rendered ")]
+        names = sorted(p.name for p in Path(out).glob("*.png"))
+        frames[flag] = [np.asarray(Image.open(Path(out, n))).astype(np.int32)
+                        for n in names]
+        runs[flag] = {"s": run_s, "frames": len(names), "rendered": done,
+                      "frames_per_s": float(done[-1].split("(")[1].split()[0])
+                      if done else None,
+                      "render_readback_s": float(done[-1].split("read-back ")[1].split()[0])
+                      if done else None,
+                      "frame_std": [float(f.std()) for f in frames[flag]],
+                      "topdown": Path(f"{out}.topdown.png").exists(),
+                      **_module_run(res)}
+    a, b = (frames[f] for f in TRAJ_STRATEGIES)
+    png_diff = max(int(np.abs(x - y).max()) for x, y in zip(a, b)) if a and b else None
+
+    # frame 0 of both strategies in this process, as floats
+    imgs = {}
+    for flag in TRAJ_STRATEGIES:
+        args = RT.parse_args(common + ["--out_dir", f"{work}/traj_frame0", flag])
+        state, host_sh = RT.load_model(args, "cuda")
+        positions, target = RT.trajectory(args, state)
+        vms, c2ws = RT.frame_cameras(positions, target, "cuda")
+        render, ctx = RT.make_renderer(args, state, host_sh, "cuda")
+        try:
+            imgs[flag] = render(vms[0], c2ws[0]).cpu()
+        finally:
+            if ctx is not None:
+                ctx.close()
+        del state, host_sh, render, ctx
+        torch.cuda.empty_cache()
+    full, compact = (imgs[f] for f in TRAJ_STRATEGIES)
+    err = (full - compact).abs()
+    close = bool((err <= TRAJ_ATOL + TRAJ_RTOL * compact.abs()).all())
+    result = {"phase": "trajectory", "ply": ply, "width": 1280, "height": 720,
+              "runs": runs, "png_max_level_diff": png_diff,
+              "frame0_max_abs_err": err.max().item(), "frame0_close": close,
+              "tol": {"png_levels": 1, "rtol": TRAJ_RTOL, "atol": TRAJ_ATOL}}
+    for flag, r in runs.items():
+        fs = frames[flag]
+        check(r["frames"] == TRAJ_FRAMES and all(v > 5 for v in r["frame_std"])
+              and all(not np.array_equal(x, y) for x, y in zip(fs, fs[1:])),
+              f"trajectory {flag}: {r['frames']} frames, std {r['frame_std']}")
+        check(all(r["launches"].get(k, 0) >= TRAJ_FRAMES
+                  for k in ("rasterize_fwd", "fill")),
+              f"trajectory {flag}: launches {r['launches']}")
+    check(png_diff is not None and png_diff <= 1,
+          f"trajectory: frames of the two strategies differ by {png_diff} levels")
+    check(close, f"trajectory: frame 0 differs by {err.max().item()} between strategies")
+    return result
+
+
+def _module_run(res):
+    """The JSON line RUN_MODULE prints last (empty counts when the run
+    failed)."""
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+    return json.loads(lines[-1]) if res.returncode == 0 and lines else {
+        "launches": {}, "peak_device_bytes": None}
 
 
 if __name__ == "__main__":

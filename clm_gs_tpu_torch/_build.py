@@ -26,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = CSRC / "build"
-KERNELS = ("fill", "segreduce", "rasterize_fwd", "rasterize_bwd")
+KERNELS = ("fill", "segreduce", "rasterize_fwd", "rasterize_bwd", "pinned_gather")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -130,19 +130,19 @@ def host_library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def _entry(name: str, fn: str, argtypes: list):
+def entry(name: str, fn: str, argtypes: list):
     """C entry `fn` of kernel `name`'s library, built if stale; restype is
     the int error code."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             build((name,))
-            lib = ctypes.CDLL(str(_so(name)))
-            f = getattr(lib, fn)
+            lib = _libs[name] = ctypes.CDLL(str(_so(name)))
+        f = getattr(lib, fn)
+        if f.argtypes is None:
             f.argtypes = argtypes
             f.restype = ctypes.c_int
-            _libs[name] = lib
-        return getattr(lib, fn)
+        return f
 
 
 def launch(name: str, fn: str, argtypes: list, device, *args):
@@ -151,10 +151,10 @@ def launch(name: str, fn: str, argtypes: list, device, *args):
     the launch."""
     import torch
 
-    entry = _entry(name, fn, argtypes)
+    f = entry(name, fn, argtypes)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = entry(*args, ctypes.c_void_p(stream))
+        err = f(*args, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"CUDA launch of {fn} failed: cudaError {err}")
     LAUNCHES[name] += 1

@@ -3,9 +3,9 @@
 Typed dataclasses with auto-generated argparse flags: the same seven groups,
 flag names, defaults and validation as the JAX package, so the same command
 lines run either package. Knobs that exist for the TPU or for several chips
-(`mesh_shape`, `shard_gaussians`, `dist_*`, `pinned_host`, `gather_cap`,
-`isect_cap`, `isect_margin`) are accepted and ignored by the port, which runs
-on one card and sizes its instance buffers to the true count; so are the
+(`mesh_shape`, `shard_gaussians`, `dist_*`, `gather_cap`, `isect_cap`,
+`isect_margin`) are accepted and ignored by the port, which runs on one card
+and sizes its instance buffers to the true count; so are the
 reference's CUDA knobs that the JAX package ignores too.
 
 The parsed `Config` is passed explicitly; there is no process-global state.
@@ -161,11 +161,11 @@ class DebugParams:
 @dataclass
 class TpuParams:
     """The JAX package's own knobs. The port uses `capacity_granule`,
-    `eval_res_cap`, `gt_device_cache_mb` and clm_offload's `retention`; it
-    accepts and ignores the multi-chip and TPU ones (`mesh_shape`,
-    `shard_gaussians`, `dist_*`, `isect_cap`, `isect_margin`, `gather_cap`)
-    and `pinned_host` (the host SH buffer is pinned already; the card-side
-    gather from mapped memory is not ported, and the run's log says so)."""
+    `eval_res_cap`, `gt_device_cache_mb` and clm_offload's `retention` and
+    `pinned_host` (the card gathers the SH rows out of the pinned host
+    buffer, utils/hostmem.py); it accepts and ignores the multi-chip and TPU
+    ones (`mesh_shape`, `shard_gaussians`, `dist_*`, `isect_cap`,
+    `isect_margin`, `gather_cap`)."""
 
     mesh_shape: str = ""
     shard_gaussians: bool = True

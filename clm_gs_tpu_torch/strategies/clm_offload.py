@@ -27,6 +27,16 @@ accumulated gradients go down (G); the last camera flushes its whole set.
 The advance is three row gathers with maps built on the host. Without
 retention every camera fetches its whole set; the arithmetic is the same.
 
+With --pinned_host (`ClmContext.card_gather`) the card gathers the SH rows
+itself out of the pinned `sh_host` by ids on the card
+(`utils/hostmem.gather_rows_pinned`, csrc/pinned_gather.cu): the first
+fetch and the eval by the filter's ids, the advance by the arriving rows'
+ids, which go up with its maps. No host gather, no staging slot and no row
+upload; each gather runs on the compute stream, so it is ordered before the
+download of its camera's gradients and thus before the host Adam rewrites
+any row it reads. `h2d_bytes` counts the rows it reads over the bus as an
+upload's.
+
 Copies run on a comm stream created with --comm_stream_priority. The
 compute stream waits for each upload through an event, the comm stream for
 the compute stream before each download, and the host for a download's
@@ -51,7 +61,7 @@ from clm_gs_tpu_torch.models.gaussians import GaussianParams, GaussianState, hos
 from clm_gs_tpu_torch.optim import AdamConfig, adam_step
 from clm_gs_tpu_torch.strategies import offload_common as oc
 from clm_gs_tpu_torch.strategies.no_offload import StepOut
-from clm_gs_tpu_torch.utils import native
+from clm_gs_tpu_torch.utils import hostmem, native
 from clm_gs_tpu_torch.utils.timer import Timer
 
 SH_COLS = 48
@@ -111,6 +121,8 @@ class ClmContext:
     # every byte the batches copy between the host and the card
     h2d_bytes: int = 0
     d2h_bytes: int = 0
+    # --pinned_host: the card gathers the SH rows out of sh_host itself
+    card_gather: bool = False
 
     @property
     def host_work_s(self) -> float:
@@ -135,6 +147,7 @@ def _context(sh_host: torch.Tensor, adam_cfg: AdamConfig, device, cfg) -> ClmCon
         up_rows=_Staging(SH_COLS, torch.float32, on_card),
         up_idx=_Staging(1, torch.int32, on_card),
         down=_Staging(SH_COLS, torch.float32, on_card),
+        card_gather=bool(cfg.tpu.pinned_host),
     )
 
 
@@ -285,28 +298,45 @@ def _download(ctx: ClmContext, rows: torch.Tensor):
     return host, landed
 
 
-def _fetch(ctx: ClmContext, ids: torch.Tensor) -> torch.Tensor:
-    """The SH rows `ids` gathered on the host and uploaded."""
-    host = native.gather_rows(ctx.sh_host, ids, out=ctx.up_rows.take(len(ids)))
+def _fetch(ctx: ClmContext, ids_dev: torch.Tensor, ids_host=None) -> torch.Tensor:
+    """The SH rows `ids_dev` (ids on the batch's device) on that device:
+    under card_gather gathered there out of sh_host, else gathered on the
+    host by `ids_host` (ids_dev read back when not given) and uploaded."""
+    if ctx.card_gather:
+        return hostmem.gather_rows_pinned(ctx.sh_host, ids_dev)
+    if ids_host is None:
+        ids_host = ids_dev.cpu()
+    host = native.gather_rows(ctx.sh_host, ids_host, out=ctx.up_rows.take(len(ids_host)))
     return _upload(ctx, host, ctx.up_rows)
 
 
 def _advance(ctx: ClmContext, shc, grad_buf, prev_ids, next_ids):
     """Advance the working set from the camera with `prev_ids` to the one
-    with `next_ids`. Returns (next SH rows, their carried gradients, the
-    gradient rows that leave, their ids)."""
+    with `next_ids` (host ids). Returns (next SH rows, their carried
+    gradients, the gradient rows that leave, their ids). Under card_gather
+    the arriving rows' ids go up after the maps and the card gathers the
+    rows by them."""
     pd, pn, gp, hn = _classify_transition(prev_ids, next_ids)
     n_prev, n_next = len(prev_ids), len(next_ids)
-    h_dev = _fetch(ctx, next_ids[hn.long()])
+    h_ids = next_ids[hn.long()]
     src, gsrc = _invert_transition(pd, pn, hn, n_prev, n_next)
-    maps = ctx.up_idx.take(2 * n_next + len(gp)).view(-1)
-    torch.cat([src, gsrc, gp], out=maps)
+    parts = [src, gsrc, gp]
+    if ctx.card_gather:
+        parts.append(h_ids)
+    else:
+        h_dev = _fetch(ctx, None, h_ids)
+    maps = ctx.up_idx.take(sum(len(t) for t in parts)).view(-1)
+    torch.cat(parts, out=maps)
+    maps_dev = _upload(ctx, maps, ctx.up_idx)
+    if ctx.card_gather:
+        h_dev = _fetch(ctx, maps_dev[2 * n_next + len(gp):])  # the arriving ids
     ctx.h2d_bytes += _nbytes(h_dev) + _nbytes(maps)
-    maps = _upload(ctx, maps, ctx.up_idx).long()
+    maps = maps_dev.long()
     shc_next = torch.cat([shc, h_dev])[maps[:n_next]]
     grad_next = torch.cat([grad_buf, grad_buf.new_zeros((1, SH_COLS))])[
         maps[n_next:2 * n_next]]
-    return shc_next, grad_next, grad_buf[maps[2 * n_next:]], prev_ids[gp.long()]
+    g_end = 2 * n_next + len(gp)
+    return shc_next, grad_next, grad_buf[maps[2 * n_next:g_end]], prev_ids[gp.long()]
 
 
 def _timed_sparse_step(ctx: ClmContext, rows, grad_scale: float, step: int):
@@ -378,7 +408,7 @@ def train_one_batch(state, opt_state, ctx: ClmContext, cams, gt, sh_degree,
         ids_h = ids_host[cam]
         if shc is None:  # the first camera, or retention off
             tm.start("clm.fetch_h2d")
-            shc = _fetch(ctx, ids_h)
+            shc = _fetch(ctx, F.ids[cam], ids_h)
             ctx.h2d_bytes += _nbytes(shc)
             grad_buf = torch.zeros_like(shc)
             tm.stop("clm.fetch_h2d", sync=shc)
@@ -491,13 +521,13 @@ def restore_extra(ctx: ClmContext, arrays: dict) -> ClmContext:
 @torch.no_grad()
 def eval_one_cam(state_and_ctx, viewmat, Kmat, camtoworld, sh_degree: int,
                  background, width: int, height: int):
-    """Eval of one camera: its filter, its SH rows gathered from the host,
-    the render of the compact set. `state_and_ctx` is (state, context).
-    Returns (image, n_isects)."""
+    """Eval of one camera: its filter, its SH rows gathered from the host
+    buffer (on the card under card_gather), the render of the compact set.
+    `state_and_ctx` is (state, context). Returns (image, n_isects)."""
     state, ctx = state_and_ctx
     p = state.params
     F = oc.calculate_filters(p.xyz, p.quat, p.log_scale, state.alive, viewmat[None],
                              Kmat[None], width, height, 0.0)
-    shc = _fetch(ctx, F.ids[0].cpu())
+    shc = _fetch(ctx, F.ids[0])
     return oc.eval_visible(p, F.ids[0], shc, viewmat, Kmat, camtoworld[:3, 3],
                            sh_degree, background, width, height)

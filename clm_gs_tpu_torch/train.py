@@ -15,7 +15,9 @@ for eval, densification, saves and checkpoints); or, the default,
 on the host (the state carries a (1, 48) SH placeholder; densification
 replays its row moves on the host, PLY saves read the host rows, each eval
 camera gathers its visible rows, and the worker thread of the host Adam is
-shut down when the run ends). The port sizes its instance buffers to each
+shut down when the run ends; with --pinned_host the card gathers the rows
+out of the pinned host buffer itself, and under the other strategies the
+flag changes nothing). The port sizes its instance buffers to each
 camera's true count, so the JAX package's `isect_cap`/`vis_cap`/`gather_cap`
 adaptation has no counterpart here, and it runs on one device.
 
@@ -191,9 +193,10 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
         scene.host_sh = None  # the context owns the host rows
         closing.callback(strategy_ctx.close)
         if cfg.tpu.pinned_host:
-            logger.write("pinned_host: the host SH buffer is pinned already; the "
-                         "card-side gather from mapped memory is not ported, so "
-                         "rows are gathered on the host\n")
+            how = ("csrc/pinned_gather.cu" if device.type == "cuda"
+                   else "its plain version on the CPU")
+            logger.write("pinned_host: card-side SH gather on: the device reads the "
+                         f"rows it fetches out of the pinned host buffer ({how})\n")
 
     def scalar(v, dev=device):
         return torch.tensor(v, dtype=torch.float32, device=dev)
