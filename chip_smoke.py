@@ -78,8 +78,10 @@ Phases, one JSON line each:
      the gather kernel launched.
  10. trajectory: `python -m clm_gs_tpu_torch.render_trajectory` (through
      runpy) on phase 9's final PLY with phase 7's training cameras, 8
-     frames of 1280x720 and a top-down view, under --no_offload and
-     --clm_offload: every frame with structure, consecutive frames apart,
+     frames of 1280x720 and --topdown, under --no_offload and
+     --clm_offload (the top-down view is best-effort: it is written only
+     where matplotlib is installed, and the phase records whether it was
+     and why): every frame with structure, consecutive frames apart,
      the two runs' frames within one level, frame 0 of both as floats in
      this process within 1e-5 relative and 1e-6 absolute, frames/s, peak
      device memory and the forward and fill launches of each run. The
@@ -102,6 +104,9 @@ import time
 # the tensor cores; both at the full 700 W power limit.
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# the card's host link (NVIDIA data sheet): PCIe Gen5 x16, 128 GB/s both
+# ways, so 64 GB/s host to card
+PEAK_PCIE_H2D = 64e9
 # float32 operations per (instance, pixel) pair, counted from the kernels'
 # source (an FMA is two, exp one), by how far the pair goes through the
 # tests of csrc/raster_common.cuh: past the row's staged sigma cut (the
@@ -339,7 +344,8 @@ def run(torch, report):
          **other_launches(GATHER), "max_abs_err": g["max_abs_err"], "ms": g["ms"],
          "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
          "library_ms": None, "host_staged_fetch_ms": g["host_staged_fetch_ms"],
-         "h2d_bytes_per_s": g["h2d_bytes_per_s"], "rows": g["rows"]}
+         "bound_rate": g["bound_rates"]["bus"],
+         "h2d_copy_bytes_per_s": g["h2d_bytes_per_s"], "rows": g["rows"]}
     ]})
 
 
@@ -1503,9 +1509,11 @@ def gather_check(torch, state, cb, w, h, ctxs):
     pinned SH table of the card-gather context: bit-equal, timed beside the
     plain version and the host-staged fetch it replaces (native.gather_rows
     into a pinned staging slot and its upload, the retention context's
-    `_fetch`). The bound is the rows' bytes over the pinned host-to-card
-    copy rate measured here (a non-blocking copy_ of the whole table), or
-    the ids' and output's bytes over HBM's, whichever is longer."""
+    `_fetch`). The bound is the rows' bytes over the link's published
+    host-to-card rate (PEAK_PCIE_H2D), or the ids' and output's bytes over
+    HBM's, whichever is longer. Beside it, `h2d_bytes_per_s` is the rate a
+    copy engine reaches here (a non-blocking copy_ of the whole table out
+    of pinned memory), the achievable rate of a bulk upload."""
     from clm_gs_tpu_torch.strategies import clm_offload as clm
     from clm_gs_tpu_torch.strategies import offload_common as oc
     from clm_gs_tpu_torch.utils import hostmem
@@ -1529,7 +1537,7 @@ def gather_check(torch, state, cb, w, h, ctxs):
     h2d_rate = table.numel() * 4 / (copy_ms * 1e-3)
     del dst
     row_bytes = n * 48 * 4
-    t_bus = row_bytes / h2d_rate * 1e3
+    t_bus = row_bytes / PEAK_PCIE_H2D * 1e3
     t_hbm = (n * ids.element_size() + row_bytes) / PEAK_BYTES * 1e3
     return {
         "rows": n, "table_rows": table.shape[0], "row_bytes": row_bytes,
@@ -1539,6 +1547,8 @@ def gather_check(torch, state, cb, w, h, ctxs):
         "host_staged_fetch_ms": wall_ms(torch, lambda: clm._fetch(host_ctx, None, ids_host)),
         "h2d_copy_ms": copy_ms, "h2d_bytes_per_s": h2d_rate,
         "bound_ms": max(t_bus, t_hbm), "bound_by": "bytes",
+        "bound_rates": {"bus": "PCIe Gen5 x16, 64e9 B/s host to card (NVIDIA data sheet)",
+                        "hbm": "3.35e12 B/s"},
         "bound_parts_ms": {"bus": t_bus, "hbm": t_hbm},
         "library_ms": None,
     }
@@ -1746,6 +1756,9 @@ def trajectory_run(torch, work, scene):
                       if done else None,
                       "frame_std": [float(f.std()) for f in frames[flag]],
                       "topdown": Path(f"{out}.topdown.png").exists(),
+                      # a best-effort output: why it was or was not written
+                      "topdown_log": [ln for ln in res.stderr.splitlines()
+                                      if ln.startswith(("wrote ", "topdown view"))],
                       **_module_run(res)}
     a, b = (frames[f] for f in TRAJ_STRATEGIES)
     png_diff = max(int(np.abs(x - y).max()) for x, y in zip(a, b)) if a and b else None

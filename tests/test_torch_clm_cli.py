@@ -235,3 +235,25 @@ def test_default_strategy_is_clm(scene, tmp_path):
     assert tuple(opt.mu.sh.shape) == (1, 48) and state.n_alive > 120
     evals = _events(out, "eval")
     assert evals and all(np.isfinite(e["psnr"]) for e in evals)
+
+
+def test_cli_ab_reads_a_clm_log(scene, tmp_path):
+    """utils/cli_ab.py's reader on a timed clm run's python.log: end2end
+    seconds and it/s as logged, a mean a call for every clm span, and the
+    last overlap line's two numbers."""
+    from clm_gs_tpu_torch.utils.cli_ab import parse_log
+
+    out = str(tmp_path / "timed")
+    tmain(["-s", scene, "-m", out, "--clm_offload", "--bsz", "4", "--iterations", "8",
+           "--enable_timer", "--log_interval", "4", "--do_not_save"], device="cpu")
+    log = _log(out)
+    got = parse_log(log)
+    e2e = [ln for ln in log.splitlines() if ln.startswith("end2end total_time:")][-1]
+    assert e2e.startswith(f"end2end total_time: {got['end2end_s']:.3f} s")
+    assert e2e.endswith(f"throughput {got['it_per_s']:.2f} it/s")
+    spans = ("clm.filters", "clm.order", "clm.fetch_h2d", "clm.micro", "clm.advance",
+             "train_step")
+    assert all(got["span_ms"][k] > 0 for k in spans)
+    last = _overlap_lines(log)[-1]
+    assert f"host work {got['overlap_ms']['host_work']:.1f} ms/batch" in last
+    assert f"trailing {got['overlap_ms']['trailing']:.1f} ms/batch" in last
