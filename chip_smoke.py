@@ -46,6 +46,18 @@ Phases, one JSON line each:
      plain version on camera 0's visible rows, bit-equal, timed beside the
      host-staged fetch it replaces and bounded by the pinned host-to-card
      copy rate measured in the same call.
+  6c. mesh_step: a world-1 NCCL process group and a 1x1 (data x gauss) mesh
+     on a fresh copy of phase 4's scene: from the same seeded moments, one
+     step of parallel/shard.py's sharded step (compact visible rows, the
+     gather over the gauss group, the four kernels) against one
+     no_offload.train_step: losses, parameter moves, first moments,
+     xyz_grad_accum (and its increment's ratio, 1 where the JAX package's
+     is n_gauss) and denom; then 5 timed steps of each, peak device memory
+     and the bytes of a rank's state and moments, each kernel's launches
+     over the sharded steps. On a host with 2 or more cards the same check
+     runs at 1x2 and 2x1 (and 2x2 with 4) in spawned NCCL processes, one a
+     card, with each rank's peak memory; otherwise the phase prints a line
+     that only world 1 ran, and why.
   7. cli: the bench scene's 1M Gaussians written as a COLMAP scene (32
      cameras of 1237x822, utils/synthetic_colmap.py). A short run to the
      first densification round reports the rows each gradient threshold
@@ -76,6 +88,14 @@ Phases, one JSON line each:
      SH rows and moments from strategy_extra.npz into a new pinned buffer
      that the card gathers from: its log says so, its test PSNR rises and
      the gather kernel launched.
+  9b. mesh: the CLI's main with FULL_TRAIN_ARGS on phase 7's scene, started
+     as a process group of one by the --dist_* flags with --mesh_shape 1x1
+     (the sharded step, densification and growth on the whole state, eval,
+     the PLY and checkpoint gathered): the mesh line, growth, a reset, the
+     final test PSNR within 0.1 dB of phase 7's, the PLY against the final
+     state, each kernel's launches, the process group destroyed; then a
+     resume from its checkpoint to iteration 120 with `python -m
+     clm_gs_tpu_torch.train` on one card, without a process group.
  10. trajectory: `python -m clm_gs_tpu_torch.render_trajectory` (through
      runpy) on phase 9's final PLY with phase 7's training cameras, 8
      frames of 1280x720 and --topdown, under --no_offload and
@@ -95,6 +115,7 @@ from __future__ import annotations
 import argparse
 import csv
 import json
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -167,6 +188,17 @@ TOL = {
     # PSNR (dB)
     "naive_psnr_db": 0.5,
     "clm_psnr_db": 0.5,
+    # the sharded step against no_offload.train_step, both on the card from
+    # the same seeded moments (the rows reach the rasterizer compacted, in
+    # rank order): losses relative, parameter moves and first moments
+    # relative to each group's largest, xyz_grad_accum relative to its
+    # largest; denom exact
+    "mesh_loss_rel": 1e-5,
+    "mesh_step_rel": 1e-4,
+    "mesh_grad_rel": 1e-5,
+    "mesh_accum_rel": 1e-4,
+    # the mesh CLI run's final test PSNR against the cli run's (dB)
+    "mesh_psnr_db": 0.1,
     # clm_step with retention against the full re-gather, relative to each
     # group's largest move
     "retention_rel": 1e-5,
@@ -289,6 +321,10 @@ def run(torch, report):
     torch.cuda.empty_cache()
     report["clm_step"] = clm_step(torch, box, *step_args)
     emit(report["clm_step"])
+    box.clear()
+    torch.cuda.empty_cache()
+    report["mesh_step"] = mesh_step(torch)
+    emit(report["mesh_step"])
     torch.cuda.empty_cache()
 
     # 7. and 8. the training CLI under no_offload and naive_offload on one
@@ -309,6 +345,9 @@ def run(torch, report):
         report["clm"] = clm_cli_run(torch, work, colmap, report["cli"], report["naive"])
         emit(report["clm"])
         torch.cuda.empty_cache()
+        report["mesh"] = mesh_cli_run(torch, work, colmap, report["cli"])
+        emit(report["mesh"])
+        torch.cuda.empty_cache()
         report["trajectory"] = trajectory_run(torch, work, colmap)
         emit(report["trajectory"])
 
@@ -325,6 +364,8 @@ def run(torch, report):
                 "clm_launches": report["clm"]["launches"].get(k, 0),
                 "clm_pinned_resume_launches":
                     report["clm"]["resume"]["launches"].get(k, 0),
+                "mesh_step_launches": report["mesh_step"]["launches"].get(k, 0),
+                "mesh_launches": report["mesh"]["launches"].get(k, 0),
                 "trajectory_launches": {f: r["launches"].get(k, 0) for f, r in
                                         report["trajectory"]["runs"].items()}}
 
@@ -371,7 +412,12 @@ def summary(report):
         "clm_pinned_resume": {k: clm["resume"][k] for k in ("end2end", "test_psnr", "launches")},
         "trajectory": {f: {k: r[k] for k in ("frames_per_s", "render_readback_s", "s",
                                               "peak_device_bytes")}
-                       for f, r in report["trajectory"]["runs"].items()}}
+                       for f, r in report["trajectory"]["runs"].items()},
+        "mesh_step": {k: report["mesh_step"][k] for k in (
+            "single_median_step_s", "sharded_median_step_s", "single_peak_device_bytes",
+            "sharded_peak_device_bytes", "rank_state_bytes", "errors", "ranks")},
+        "mesh": {k: report["mesh"][k] for k in ("it_per_s", "cli_it_per_s",
+                                                 "final_test_psnr_minus_cli")}}
 
 
 def _bound(bytes_, flops):
@@ -1704,6 +1750,325 @@ def clm_cli_run(torch, work, scene, cli, naive):
     check(resume_run["launches"].get(GATHER, 0) > 0
           and all(resume_run["launches"].get(k, 0) > 0 for k in KERNELS),
           f"clm: the --pinned_host resume's launches {resume_run['launches']}")
+    return result
+
+
+# The mesh phases: parallel/ on one card (world 1, mesh 1x1), and across the
+# host's cards where it has more than one.
+MESH_SHAPES = {2: ("1x2", "2x1"), 4: ("1x2", "2x1", "2x2")}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_errors(torch, p0, mu0, single, sharded):
+    """The sharded step's result against no_offload's from the same state:
+    `single` and `sharded` are (state, opt_state, StepOut) with every row."""
+    (s1, o1, out1), (s2, o2, out2) = single, sharded
+    l1, l2 = out1.losses.sort().values, out2.losses.sort().values
+    step_rel = grad_rel = 0.0
+    for f in GROUPS:
+        d1 = getattr(s1.params, f) - getattr(p0, f)
+        d2 = getattr(s2.params, f) - getattr(p0, f)
+        step_rel = max(step_rel, ((d2 - d1).abs().max()
+                                  / d1.abs().max().clamp_min(1e-30)).item())
+        g = (getattr(o1.mu, f) - 0.9 * getattr(mu0, f)).abs().max().clamp_min(1e-30)
+        grad_rel = max(grad_rel, ((getattr(o2.mu, f) - getattr(o1.mu, f)).abs().max()
+                                  / g).item())
+    a1, a2 = s1.xyz_grad_accum, s2.xyz_grad_accum
+    seen = a1 > 1e-3 * a1.max()
+    return {"loss_rel": ((l2 - l1).abs() / l1.abs()).max().item(),
+            "param_step_rel": step_rel, "grad_rel": grad_rel,
+            "accum_rel": ((a2 - a1).abs().max() / a1.abs().max()).item(),
+            # the JAX package's sharded step gives n_gauss here
+            "accum_increment_ratio": (a2[seen] / a1[seen]).median().item(),
+            "denom_equal": torch.equal(s1.denom, s2.denom),
+            "visible_equal": torch.equal(out1.visible_any, out2.visible_any),
+            "n_isects_equal": tuple(out1.n_isects) == tuple(out2.n_isects)}
+
+
+def _mesh_ok(e):
+    return (e["loss_rel"] <= TOL["mesh_loss_rel"] and e["param_step_rel"] <= TOL["mesh_step_rel"]
+            and e["grad_rel"] <= TOL["mesh_grad_rel"] and e["accum_rel"] <= TOL["mesh_accum_rel"]
+            and e["denom_equal"] and e["visible_equal"] and e["n_isects_equal"])
+
+
+def _timed_steps(torch, fn, st, op, n=5):
+    """n steps of fn from (st, op); seconds each (a sync after each)."""
+    secs = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        st, op, _ = fn(st, op)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return secs
+
+
+def mesh_rank_check(torch, shape, time_single):
+    """On this rank's card, inside a started process group: the bench scene
+    with seeded moments through one no_offload.train_step and one sharded
+    step of `shape`, compared; then 5 timed no_offload steps (when
+    `time_single`) and 5 timed sharded steps, with each block's peak memory
+    and the kernels' launches over the sharded steps."""
+    from clm_gs_tpu_torch import _build
+    from clm_gs_tpu_torch.parallel import mesh as M
+    from clm_gs_tpu_torch.parallel.shard import make_sharded_train_step
+    from clm_gs_tpu_torch.strategies.no_offload import train_step
+    from clm_gs_tpu_torch.utils.bench_scene import make_scene
+
+    mesh = M.make_mesh(shape, "cuda")
+    state, _, cb, gts, lrs, cfg, bg = make_scene()
+    opt = _seeded_moments(torch, state.params, "cuda")
+    w, h, C, n_alive = cb.width, cb.height, state.capacity, state.n_alive
+    single = train_step(state, opt, cb, gts, 3, lrs, cfg, bg, w, h)
+    sharded = make_sharded_train_step(mesh, w, h)
+    sh_state = M.shard_state(state, mesh)
+    sh_opt = M.shard_capacity_tree(opt, mesh, C)
+    rank_bytes = _tensor_bytes(torch, sh_state) + _tensor_bytes(torch, sh_opt)
+    s2, o2, out2 = sharded(sh_state, sh_opt, cb, gts, 3, lrs, cfg, bg)
+    del sh_state, sh_opt
+    rows = s2.capacity
+    whole = (M.gather_capacity_tree(s2, mesh, rows), M.gather_capacity_tree(o2, mesh, rows),
+             out2._replace(visible_any=M.gather_capacity_tree(out2.visible_any, mesh, rows)))
+    errors = _mesh_errors(torch, state.params, opt.mu, single, whole)
+    losses = out2.losses.tolist()
+    del whole, state, opt
+    torch.cuda.empty_cache()
+    result = {"shape": shape, "mesh": mesh.shape, "rank": mesh.data_index * mesh.n_gauss
+              + mesh.gauss_index, "device": torch.cuda.current_device(),
+              "gaussians": int(n_alive), "width": w, "height": h, "cameras": gts.shape[0],
+              "rows": rows, "capacity": C, "rank_state_bytes": rank_bytes,
+              "losses": losses, "max_shard_vis": out2.max_shard_vis,
+              "n_isects": list(out2.n_isects), "errors": errors}
+    if time_single:
+        torch.cuda.reset_peak_memory_stats()
+        result["single_step_s"] = _timed_steps(
+            torch, lambda st, op: train_step(st, op, cb, gts, 3, lrs, cfg, bg, w, h),
+            single[0], single[1])
+        result["single_peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    del single
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    result["sharded_step_s"] = _timed_steps(
+        torch, lambda st, op: sharded(st, op, cb, gts, 3, lrs, cfg, bg), s2, o2)
+    result["launches"] = dict(_build.LAUNCHES)
+    result["sharded_peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    return result
+
+
+def _mesh_rank(rank, world, port, shape, results):
+    """A spawned rank of the multi-card check: one card, NCCL."""
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(rank)
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=world, rank=rank,
+                                device_id=torch.device("cuda", rank))
+        try:
+            results.put((rank, mesh_rank_check(torch, shape, time_single=False)))
+        finally:
+            dist.destroy_process_group()
+    except Exception as e:  # reported to the parent, which fails the phase
+        results.put((rank, {"error": f"{type(e).__name__}: {e}"}))
+
+
+def mesh_ranks(shape, world, timeout=240):
+    """mesh_rank_check at `shape` in `world` spawned processes, one a card;
+    every process is joined or stopped before this returns."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_mesh_rank, args=(r, world, port, shape, results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    out = {}
+    deadline = time.monotonic() + timeout
+    try:
+        while len(out) < world and time.monotonic() < deadline:
+            try:
+                rank, res = results.get(timeout=5)
+            except queue.Empty:
+                # a rank that died without reporting leaves the others waiting
+                # in a collective for it
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    break
+                continue
+            out[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=30 if len(out) == world else 5)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    return [out.get(r, {"error": f"no result (exit code {procs[r].exitcode})"})
+            for r in range(world)]
+
+
+def mesh_step(torch):
+    """Phase 6c: the sharded step in a world-1 NCCL process group on this
+    card (mesh 1x1) against no_offload.train_step, timed beside it; then the
+    multi-card meshes where the host has the cards."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0, device_id=torch.device("cuda", 0))
+    try:
+        one = mesh_rank_check(torch, "1x1", time_single=True)
+    finally:
+        dist.destroy_process_group()
+    cards = torch.cuda.device_count()
+    ranks, ranks_s = {}, {}
+    if cards >= 2:
+        world = 4 if cards >= 4 else 2
+        for shape in MESH_SHAPES[world]:
+            t0 = time.perf_counter()
+            ranks[shape] = mesh_ranks(shape, int(shape[0]) * int(shape[2]))
+            ranks_s[shape] = time.perf_counter() - t0
+            print(f"mesh_step: {shape} took {ranks_s[shape]:.1f} s", flush=True)
+            torch.cuda.empty_cache()
+    else:
+        print(f"mesh_step: only world 1 (mesh 1x1) was run: the host has {cards} "
+              "card; 1x2, 2x1 and 2x2 need 2 or 4", flush=True)
+    e = one["errors"]
+    result = {
+        "phase": "mesh_step", "process_group": "nccl, world 1", "shape": "1x1",
+        **{k: one[k] for k in ("gaussians", "capacity", "cameras", "width", "height")},
+        "losses": one["losses"], "errors": e,
+        "tol": {k: v for k, v in TOL.items() if k.startswith("mesh_") and k != "mesh_psnr_db"},
+        "single_step_s": one["single_step_s"], "sharded_step_s": one["sharded_step_s"],
+        "single_median_step_s": statistics.median(one["single_step_s"]),
+        "sharded_median_step_s": statistics.median(one["sharded_step_s"]),
+        "single_peak_device_bytes": one["single_peak_device_bytes"],
+        "sharded_peak_device_bytes": one["sharded_peak_device_bytes"],
+        "rank_state_bytes": one["rank_state_bytes"], "max_shard_vis": one["max_shard_vis"],
+        "launches": one["launches"], "cards": cards, "ranks_s": ranks_s,
+        "ranks": {shape: [{k: r.get(k) for k in (
+            "rank", "device", "mesh", "rows", "rank_state_bytes", "sharded_step_s",
+            "sharded_peak_device_bytes", "max_shard_vis", "errors", "launches", "error")}
+            for r in rs] for shape, rs in ranks.items()},
+    }
+    check(_mesh_ok(e) and abs(e["accum_increment_ratio"] - 1.0) <= TOL["mesh_accum_rel"],
+          f"mesh_step 1x1 against no_offload: {e}")
+    check(all(one["launches"].get(k, 0) > 0 for k in KERNELS),
+          f"mesh_step: a kernel of the path never launched: {one['launches']}")
+    for shape, rs in ranks.items():
+        for r in rs:
+            check("error" not in r, f"mesh_step {shape} rank: {r.get('error')}")
+            check(_mesh_ok(r["errors"])
+                  and abs(r["errors"]["accum_increment_ratio"] - 1.0) <= TOL["mesh_accum_rel"],
+                  f"mesh_step {shape} rank {r['rank']} against no_offload: {r['errors']}")
+            check(r["rows"] * r["mesh"]["gauss"] == one["capacity"],
+                  f"mesh_step {shape}: rank {r['rank']} holds {r['rows']} rows")
+    return result
+
+
+def mesh_cli_run(torch, work, scene, cli):
+    """Phase 9b: `main` with FULL_TRAIN_ARGS on the scene and decoded images
+    of phase 7 in `work`, in a process group of one started by the --dist_*
+    flags, --mesh_shape 1x1 (launch counts over the run); then `python -m
+    clm_gs_tpu_torch.train` resuming its checkpoint on one card, without a
+    process group, to iteration 120; checked against phase 7's `cli`."""
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    from clm_gs_tpu_torch import _build
+    from clm_gs_tpu_torch.models import gaussians as G
+    from clm_gs_tpu_torch.train import main as train_main
+    from clm_gs_tpu_torch.utils.synthetic_colmap import FULL_TRAIN_ARGS
+
+    root = Path(__file__).resolve().parent
+    args = FULL_TRAIN_ARGS + ["--mesh_shape", "1x1", "--dist_coordinator",
+                              f"127.0.0.1:{_free_port()}", "--dist_num_processes", "1",
+                              "--dist_process_id", "0"]
+    out = f"{work}/mesh"
+    argv = ["-s", scene, "-m", out, "--decode_dataset_path", f"{work}/decoded",
+            "--quiet"] + args
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    state, _ = train_main(argv)
+    run_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    group_left = dist.is_initialized()
+    text = Path(out, "python.log").read_text()
+    log = _parse_log(text)
+    mesh_line = [ln for ln in text.splitlines() if ln.startswith("multi-chip mesh:")]
+
+    ply = Path(out, "point_cloud", "iteration_200", "point_cloud.ply")
+    back = G.load_ply(str(ply), device=state.alive.device)
+    ply_equal = all(torch.equal(getattr(back.params, f)[back.alive],
+                                getattr(state.params, f)[state.alive]) for f in GROUPS)
+    ply_rows, n_end = back.n_alive, state.n_alive
+    del back, state
+    torch.cuda.empty_cache()
+
+    ckpt = Path(out, "checkpoints", "101")
+    out2 = f"{work}/mesh_resume"
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "clm_gs_tpu_torch.train", "-s", scene, "-m", out2,
+         "--decode_dataset_path", f"{work}/decoded", "--quiet", "--start_checkpoint",
+         str(ckpt), "--do_not_save"]
+        + [a for a in FULL_TRAIN_ARGS if a != "--enable_timer"] + ["--iterations", "120"],
+        cwd=root, capture_output=True, text=True, check=False, timeout=600)
+    resume_s = time.perf_counter() - t0
+    log2_text = (Path(out2, "python.log").read_text()
+                 if Path(out2, "python.log").exists() else "")
+    log2 = _parse_log(log2_text)
+
+    e2e_s, it_s = log["end2end"] or (float("nan"), float("nan"))
+    psnr_gap = (log["test_psnr"] or [float("nan")])[-1] - cli["test_psnr"][-1]
+    result = {
+        "phase": "mesh", "args": args, "run_s": run_s, "mesh_line": mesh_line, "gaussians_start": log.get("initialized"),
+        "gaussians_end": n_end, "cli_gaussians_end": cli["gaussians_end"],
+        "capacity_growths": log["capacity"], "densify_counts": log["densify"],
+        "cli_densify_counts": cli["densify_counts"], "resets": log["resets"],
+        "test_psnr": log["test_psnr"], "final_test_psnr_minus_cli": psnr_gap,
+        "losses": log["losses"], "end2end_s": e2e_s, "it_per_s": it_s,
+        "cli_it_per_s": cli["it_per_s"],
+        "timer_mean_ms": {k: v[0] / max(v[1], 1) for k, v in log["timers"].items()},
+        "peak_device_bytes": peak, "cli_peak_device_bytes": cli["peak_device_bytes"],
+        "launches": launches, "ply_rows": ply_rows, "ply_equal": ply_equal,
+        "process_group_left": group_left,
+        "resume": {"rc": res.returncode, "s": resume_s, "resumed": "Resumed from" in log2_text,
+                   "mesh_line": "multi-chip mesh:" in log2_text,
+                   "end2end": log2["end2end"], "test_psnr": log2["test_psnr"]},
+    }
+    if res.returncode != 0:
+        print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
+    finite = all(v == v and abs(v) != float("inf") for v in log["losses"])
+    check(finite and log["losses"], f"mesh: losses {log['losses']}")
+    check(mesh_line == ["multi-chip mesh: {'data': 1, 'gauss': 1}"] and not group_left,
+          f"mesh: mesh line {mesh_line}, process group left {group_left}")
+    check(all(launches.get(k, 0) > 0 for k in KERNELS),
+          f"mesh: a kernel of the path never launched: {launches}")
+    check(log["capacity"] and log["resets"] >= 1,
+          f"mesh: growths {log['capacity']}, resets {log['resets']}")
+    check(len(log["test_psnr"]) >= 2 and log["test_psnr"][-1] > log["test_psnr"][0]
+          and abs(psnr_gap) <= TOL["mesh_psnr_db"],
+          f"mesh: test PSNR {log['test_psnr']}, {psnr_gap} dB from the cli run's")
+    check(ply_rows == n_end and ply_equal, f"mesh: PLY rows {ply_rows} vs {n_end}, "
+          f"equal {ply_equal}")
+    last = (log2_text.rstrip().splitlines() or [""])[-1]
+    check(res.returncode == 0 and result["resume"]["resumed"]
+          and not result["resume"]["mesh_line"] and last.startswith("end2end total_time:"),
+          f"mesh: the single-card resume failed (rc {res.returncode}): {last}")
     return result
 
 

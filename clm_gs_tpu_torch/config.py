@@ -2,11 +2,12 @@
 
 Typed dataclasses with auto-generated argparse flags: the same seven groups,
 flag names, defaults and validation as the JAX package, so the same command
-lines run either package. Knobs that exist for the TPU or for several chips
-(`mesh_shape`, `shard_gaussians`, `dist_*`, `gather_cap`, `isect_cap`,
-`isect_margin`) are accepted and ignored by the port, which runs on one card
-and sizes its instance buffers to the true count; so are the
-reference's CUDA knobs that the JAX package ignores too.
+lines run either package. The multi-card knobs `mesh_shape`,
+`shard_gaussians` and `dist_*` work as in the JAX package
+(`parallel/multihost.py`, `parallel/mesh.py`); the TPU's buffer budgets
+(`gather_cap`, `isect_cap`, `isect_margin`) are accepted and ignored, since
+the port sizes its gathers and instance buffers to the true counts; so are
+the reference's CUDA knobs that the JAX package ignores too.
 
 The parsed `Config` is passed explicitly; there is no process-global state.
 """
@@ -161,11 +162,13 @@ class DebugParams:
 @dataclass
 class TpuParams:
     """The JAX package's own knobs. The port uses `capacity_granule`,
-    `eval_res_cap`, `gt_device_cache_mb` and clm_offload's `retention` and
+    `eval_res_cap`, `gt_device_cache_mb`, clm_offload's `retention` and
     `pinned_host` (the card gathers the SH rows out of the pinned host
-    buffer, utils/hostmem.py); it accepts and ignores the multi-chip and TPU
-    ones (`mesh_shape`, `shard_gaussians`, `dist_*`, `isect_cap`,
-    `isect_margin`, `gather_cap`)."""
+    buffer, utils/hostmem.py), and the multi-card ones: `dist_*` start the
+    process group (or torchrun's variables do), `mesh_shape` ("" all data,
+    "A" A-way data, "AxB" A data x B gauss) and `shard_gaussians` (off: each
+    rank trains the whole state alone). It accepts and ignores the TPU's
+    buffer budgets (`isect_cap`, `isect_margin`, `gather_cap`)."""
 
     mesh_shape: str = ""
     shard_gaussians: bool = True

@@ -25,7 +25,9 @@ from clm_gs_tpu_torch.models import gaussians as G
 
 
 class Scene:
-    def __init__(self, cfg: Config, logger=None, device="cuda"):
+    def __init__(self, cfg: Config, logger=None, device="cuda", writer: bool = True):
+        """`writer`: this process writes the run's files (`cameras.json`);
+        the other ranks of a process group do not."""
         self.cfg = cfg
         src = cfg.model.source_path
         log = logger.write if logger else print
@@ -48,7 +50,7 @@ class Scene:
         self.cameras_extent = info.nerf_normalization["radius"]
 
         # viewer camera dump: test cameras first, then train
-        if cfg.model.model_path:
+        if cfg.model.model_path and writer:
             os.makedirs(cfg.model.model_path, exist_ok=True)
             with open(os.path.join(cfg.model.model_path, "cameras.json"), "w") as f:
                 json.dump([camera_json(i, c) for i, c in enumerate(

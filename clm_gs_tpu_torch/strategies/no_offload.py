@@ -24,6 +24,9 @@ class StepOut(NamedTuple):
     max_isects: int
     visible_any: torch.Tensor  # (C,) bool
     n_isects: Tuple[int, ...] = ()  # per camera, as binned (port only)
+    # the mesh step (parallel/shard.py): the most visible rows one rank's
+    # shard gave one camera
+    max_shard_vis: int = 0
 
 
 class BatchGrads(NamedTuple):

@@ -19,7 +19,17 @@ shut down when the run ends; with --pinned_host the card gathers the rows
 out of the pinned host buffer itself, and under the other strategies the
 flag changes nothing). The port sizes its instance buffers to each
 camera's true count, so the JAX package's `isect_cap`/`vis_cap`/`gather_cap`
-adaptation has no counterpart here, and it runs on one device.
+adaptation has no counterpart here.
+
+On several cards, one process each (`parallel/multihost.py`: torchrun or the
+--dist_* flags), --no_offload trains on the (data x gauss) mesh of
+--mesh_shape through `parallel/shard.py`'s step, each rank holding
+C/n_gauss rows of the state and moments; densification, eval, PLY saves and
+checkpoints gather the whole state onto every rank, and rank 0 alone writes
+the run's files. Checkpoints keep the single-device layout. As in the JAX
+package, --naive_offload, or a data axis that does not divide bsz, runs the
+single-device step on every rank (and says so); --clm_offload on more than
+one process is not ported yet.
 
 `training` and `main` run on the card unless called with device="cpu".
 """
@@ -34,6 +44,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from clm_gs_tpu_torch.config import Config, parse_config, save_config
 from clm_gs_tpu_torch.data.cameras import CameraBatch, stack_cameras
@@ -42,6 +53,10 @@ from clm_gs_tpu_torch.models import densify as Dn
 from clm_gs_tpu_torch.models import gaussians as G
 from clm_gs_tpu_torch.optim import (AdamConfig, AdamState, init_adam,
                                     lr_batch_scale, sh_column_lr)
+from clm_gs_tpu_torch.parallel import mesh as M
+from clm_gs_tpu_torch.parallel.multihost import (is_rank0, maybe_initialize,
+                                                 rank0_first)
+from clm_gs_tpu_torch.parallel.shard import make_sharded_train_step
 from clm_gs_tpu_torch.scene import Scene
 from clm_gs_tpu_torch.strategies import clm_offload, naive_offload, no_offload
 from clm_gs_tpu_torch.utils.checkpoint import (latest_checkpoint,
@@ -50,7 +65,7 @@ from clm_gs_tpu_torch.utils.general import (check_device,
                                             check_update_at_this_iter,
                                             get_expon_lr_func, memory_report,
                                             next_capacity, psnr as psnr_fn)
-from clm_gs_tpu_torch.utils.logger import RunLogger
+from clm_gs_tpu_torch.utils.logger import NullLogger, RunLogger
 from clm_gs_tpu_torch.utils.timer import End2endTimer, Timer
 
 STRATEGIES = {"no_offload": no_offload, "naive_offload": naive_offload,
@@ -98,7 +113,8 @@ def training(cfg: Config, device="cuda"):
     naive_offload the state's parameters are uploaded from the host copy and
     opt_state is None (the moments were on the host); under clm_offload the
     SH rows are uploaded from the host buffer and opt_state's SH moments are
-    the (1, 48) placeholder."""
+    the (1, 48) placeholder; on a mesh, the whole state and moments on every
+    rank."""
     device = check_device(device)
     with contextlib.ExitStack() as closing:
         return _training(cfg, device, closing)
@@ -106,19 +122,31 @@ def training(cfg: Config, device="cuda"):
 
 def _training(cfg: Config, device, closing: contextlib.ExitStack):
     t_setup = time.time()
+    # under a process group rank 0 alone writes the run's files
+    writer = is_rank0()
     os.makedirs(cfg.model.model_path, exist_ok=True)
-    logger = RunLogger(cfg.model.model_path,
-                       append=bool(cfg.aux.auto_start_checkpoint),
-                       quiet=cfg.aux.quiet)
+    if writer:
+        logger = RunLogger(cfg.model.model_path,
+                           append=bool(cfg.aux.auto_start_checkpoint),
+                           quiet=cfg.aux.quiet)
+        save_config(cfg, os.path.join(cfg.model.model_path, "args.json"))
+    else:
+        logger = NullLogger()
     closing.callback(logger.close)
-    save_config(cfg, os.path.join(cfg.model.model_path, "args.json"))
     logger.write(f"config: {cfg}\n")
 
     strategy_name = cfg.strategy
     strategy = STRATEGIES[strategy_name]
     naive = strategy_name == "naive_offload"
     clm = strategy_name == "clm_offload"
-    scene = Scene(cfg, logger, device=device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if clm and world > 1:
+        raise NotImplementedError(
+            f"--clm_offload on {world} processes is not ported yet (ROADMAP.md "
+            "§1: clm x mesh); run it on one process")
+    # the decoded image cache is written by rank 0 and then read by all
+    with rank0_first():
+        scene = Scene(cfg, logger, device=device, writer=writer)
     # the loop owns the state; the scene holds it only while saving
     state, scene.gaussians = scene.gaussians, None
     # naive_offload keeps every moment on the host (HostAdam)
@@ -156,6 +184,37 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
     )
     lr_scale = lr_batch_scale(bsz, cfg.opt.lr_scale_mode)
     adam_cfg = AdamConfig().scaled(bsz, cfg.opt.lr_scale_mode)
+
+    # the (data x gauss) mesh: no_offload's state and moments sharded along
+    # capacity, cameras along the batch
+    mesh = sharded_step = None
+    if dist.is_initialized() and cfg.tpu.shard_gaussians:
+        if naive:
+            logger.write("naive_offload does not support multi-chip sharding; "
+                         "running single-device\n")
+        elif not clm:
+            n_data, _ = M.mesh_dims(cfg.tpu.mesh_shape, world)
+            if bsz % n_data:
+                logger.write(f"mesh data axis {n_data} does not divide bsz {bsz}; "
+                             "running single-device\n")
+            else:
+                mesh = M.make_mesh(cfg.tpu.mesh_shape, device)
+                opt_state = M.shard_capacity_tree(opt_state, mesh, state.capacity)
+                state = M.shard_state(state, mesh)
+                logger.write(f"multi-chip mesh: {mesh.shape}\n")
+                sharded_step = make_sharded_train_step(
+                    mesh, W, H, sparse_adam=cfg.aux.sparse_adam,
+                    lambda_dssim=cfg.opt.lambda_dssim, loss_scale=cfg.opt.lr_scale_loss,
+                    stop_update_param=cfg.debug.stop_update_param,
+                    accumulate_stats=not cfg.opt.disable_auto_densification)
+
+    def whole(state, opt_state):
+        """The state and moments with every row, on every rank."""
+        if mesh is None:
+            return state, opt_state
+        rows = state.capacity
+        return (M.gather_capacity_tree(state, mesh, rows),
+                M.gather_capacity_tree(opt_state, mesh, rows))
 
     strategy_ctx = None
     extra_path = os.path.join(ckpt, "strategy_extra.npz") if ckpt else ""
@@ -239,8 +298,10 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
 
     def full_state():
         """The state with its parameters on the device (naive_offload and
-        clm_offload: uploaded from the host copy)."""
-        return strategy.materialize(state, strategy_ctx) if naive or clm else state
+        clm_offload: uploaded from the host copy; a mesh: gathered)."""
+        if naive or clm:
+            return strategy.materialize(state, strategy_ctx)
+        return whole(state, None)[0]
 
     check_frozen = cfg.debug.stop_update_param and cfg.debug.stop_update_param_assert
     frozen_param_sum = frozen_probe() if check_frozen else None
@@ -272,7 +333,10 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
                 and profiler is None):
             profiler = _start_profiler(device)
         timers.start("train_step")
-        if naive or clm:
+        if sharded_step is not None:
+            state, opt_state, out = sharded_step(state, opt_state, cb, gt, sh_degree,
+                                                 lrs, adam_cfg, background)
+        elif naive or clm:
             state, opt_state, strategy_ctx, out = strategy.train_one_batch(
                 state, opt_state, strategy_ctx, cb, gt, sh_degree, lrs, adam_cfg,
                 background, W, H, cfg, timers=timers)
@@ -319,10 +383,13 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
             e2e.pause(sync=out.losses)
             timers.start("eval")
             # naive_offload: one upload for the whole eval, freed after it;
-            # clm_offload: each camera gathers its visible SH rows
-            training_report(cfg, scene, (state, strategy_ctx) if clm else full_state(),
-                            sh_degree, background, iteration, logger, device,
-                            strategy)
+            # clm_offload: each camera gathers its visible SH rows; a mesh:
+            # every rank gathers the state, rank 0 evaluates
+            eval_state = (state, strategy_ctx) if clm else full_state()
+            if writer:
+                training_report(cfg, scene, eval_state, sh_degree, background,
+                                iteration, logger, device, strategy)
+            del eval_state
             timers.stop("eval")
             e2e.start()
 
@@ -345,6 +412,9 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
                 raise ValueError("stop_update_param must be false for "
                                  "densification; it is a debugging flag")
             if will_densify:
+                # a mesh: every rank densifies the whole state alike (one
+                # generator state), then takes its rows again
+                state, opt_state = whole(state, opt_state)
                 timers.start("count_densify")
                 n_new = Dn.count_densify(state, cfg.opt.densify_grad_threshold,
                                          cfg.opt.percent_dense, spatial)
@@ -372,6 +442,9 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
                 )
                 if naive or clm:
                     strategy_ctx = strategy.post_densify(strategy_ctx, state, info)
+                if mesh is not None:
+                    opt_state = M.shard_capacity_tree(opt_state, mesh, state.capacity)
+                    state = M.shard_state(state, mesh)
                 timers.stop("densify", sync=state.params.xyz)
                 timers.start("log")
                 logger.densify_report(iteration, iteration + bsz, info.n_alive,
@@ -396,7 +469,8 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
             # clm_offload: the host SH buffer itself, never the card
             scene.gaussians = (strategy.materialize_host(state, strategy_ctx)
                                if clm else full_state())
-            scene.save(save_hits[-1], logger)
+            if writer:
+                scene.save(save_hits[-1], logger)
             scene.gaussians = None
             timers.stop("save")
             logger.write(f"[ITER {iteration}] Saving Gaussians\n")
@@ -407,17 +481,19 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
             if naive:
                 # self-contained chkpnt.npz: the parameters, zero moments
                 # (built on the host), and the host moments beside it
-                save_checkpoint(
-                    cfg.model.model_path, iteration + bsz, full_state(),
-                    init_adam(strategy.host_params(strategy_ctx)), generator,
-                    strategy_extra=strategy.checkpoint_extra(strategy_ctx))
+                ck_state, ck_opt = (full_state(),
+                                    init_adam(strategy.host_params(strategy_ctx)))
             else:
                 # clm_offload: the stripped state and card moments, and the
-                # host SH rows and moments beside them
+                # host SH rows and moments beside them; a mesh: every row,
+                # the single-device layout
+                ck_state, ck_opt = whole(state, opt_state)
+            if writer:
                 save_checkpoint(
-                    cfg.model.model_path, iteration + bsz, state, opt_state,
-                    generator, strategy_extra=strategy.checkpoint_extra(strategy_ctx)
-                    if clm else None)
+                    cfg.model.model_path, iteration + bsz, ck_state, ck_opt, generator,
+                    strategy_extra=strategy.checkpoint_extra(strategy_ctx)
+                    if naive or clm else None)
+            del ck_state, ck_opt
             timers.stop("checkpoint")
             logger.write(f"[ITER {iteration}] Saving Checkpoint\n")
             e2e.start()
@@ -434,7 +510,9 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
         logger.end2end(e2e.elapsed(), cfg.opt.iterations - start_iter + 1)
     if timers.enabled:
         logger.write(timers.report() + "\n")
-    return full_state(), opt_state
+    if naive or clm:
+        return full_state(), opt_state
+    return whole(state, opt_state)
 
 
 def _start_profiler(device):
@@ -537,9 +615,13 @@ def _save_eval_image(cfg, iteration, split, cam, img, gt):
 
 def main(argv=None, device="cuda"):
     cfg = parse_config(argv)
-    np.random.seed(cfg.debug.seed)
-    with torch.autograd.set_detect_anomaly(cfg.debug.detect_anomaly):
-        return training(cfg, device=device)
+    with contextlib.ExitStack() as closing:
+        # the process group, if the run asks for one, before any card work
+        if maybe_initialize(cfg, device):
+            closing.callback(dist.destroy_process_group)
+        np.random.seed(cfg.debug.seed)
+        with torch.autograd.set_detect_anomaly(cfg.debug.detect_anomaly):
+            return training(cfg, device=device)
 
 
 if __name__ == "__main__":

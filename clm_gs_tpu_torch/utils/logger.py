@@ -67,3 +67,20 @@ class RunLogger:
     def close(self):
         self.log.close()
         self.jsonl.close()
+
+
+class NullLogger(RunLogger):
+    """The logger of a rank that writes no files (every rank of a process
+    group but rank 0): every line and event is dropped."""
+
+    def __init__(self):
+        pass
+
+    def write(self, line: str):
+        pass
+
+    def event(self, kind: str, **fields):
+        pass
+
+    def close(self):
+        pass
