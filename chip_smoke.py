@@ -58,6 +58,20 @@ Phases, one JSON line each:
      runs at 1x2 and 2x1 (and 2x2 with 4) in spawned NCCL processes, one a
      card, with each rank's peak memory; otherwise the phase prints a line
      that only world 1 ran, and why.
+  6d. clm_mesh_step: a world-1 NCCL process group and a 1x1 mesh on a fresh
+     copy of phase 4's scene: from the same seeded moments (the SH ones on
+     the host), one clm_offload.train_one_batch on the mesh (the state, card
+     moments and host SH rows cut to the rank's gauss shard, the compact
+     rows gathered over the gauss group) against one on this process alone:
+     losses, parameter moves and first moments (the host SH rows' and
+     moments' included), xyz_grad_accum and its increment's ratio, denom,
+     visibility and instance counts; the mesh batch with --pinned_host to
+     the bit; then 3 batches of each in turns, timed, with peak device
+     memory, a rank's host and card bytes and each kernel's launches over
+     the first mesh batch. On a host with 2 or more cards the same check
+     runs at 1x2 and 2x1 (and 2x2 with 4) in spawned NCCL processes, with
+     the data sum's ms and bytes a batch (two camera chains where the data
+     axis is 2).
   7. cli: the bench scene's 1M Gaussians written as a COLMAP scene (32
      cameras of 1237x822, utils/synthetic_colmap.py). A short run to the
      first densification round reports the rows each gradient threshold
@@ -96,6 +110,13 @@ Phases, one JSON line each:
      state, each kernel's launches, the process group destroyed; then a
      resume from its checkpoint to iteration 120 with `python -m
      clm_gs_tpu_torch.train` on one card, without a process group.
+  9c. clm_mesh: the same under --clm_offload: the clm run on a 1x1 mesh (the
+     host SH rows and moments gathered and cut again at each densification,
+     timed by the `mesh.gather`, `clm.host_gather` and `clm.host_shard`
+     spans), its final test PSNR within 0.1 dB of phase 9's, the PLY
+     against the final state, each kernel's launches, the process group
+     destroyed; then a resume from its checkpoint to iteration 120 with
+     `python -m clm_gs_tpu_torch.train --clm_offload` on one card.
  10. trajectory: `python -m clm_gs_tpu_torch.render_trajectory` (through
      runpy) on phase 9's final PLY with phase 7's training cameras, 8
      frames of 1280x720 and --topdown, under --no_offload and
@@ -197,8 +218,20 @@ TOL = {
     "mesh_step_rel": 1e-4,
     "mesh_grad_rel": 1e-5,
     "mesh_accum_rel": 1e-4,
-    # the mesh CLI run's final test PSNR against the cli run's (dB)
+    # the mesh CLI run's final test PSNR against the cli run's (dB); the clm
+    # mesh CLI run's against the clm run's
     "mesh_psnr_db": 0.1,
+    # clm_offload's batch on a mesh against the single-process batch, both on
+    # the card from the same seeded moments (the rows reach the rasterizer
+    # through the gauss gather; with two chains the finish sets are summed
+    # over the data group): losses relative, parameter moves (the host SH
+    # rows' included) and first moments (the host ones included) relative
+    # to each group's largest, xyz_grad_accum relative to its largest; denom
+    # exact
+    "clm_mesh_loss_rel": 1e-5,
+    "clm_mesh_step_rel": 1e-4,
+    "clm_mesh_grad_rel": 1e-5,
+    "clm_mesh_accum_rel": 1e-4,
     # clm_step with retention against the full re-gather, relative to each
     # group's largest move
     "retention_rel": 1e-5,
@@ -326,6 +359,9 @@ def run(torch, report):
     report["mesh_step"] = mesh_step(torch)
     emit(report["mesh_step"])
     torch.cuda.empty_cache()
+    report["clm_mesh_step"] = clm_mesh_step(torch)
+    emit(report["clm_mesh_step"])
+    torch.cuda.empty_cache()
 
     # 7. and 8. the training CLI under no_offload and naive_offload on one
     # synthetic COLMAP scene at full width, written and decoded once
@@ -348,6 +384,9 @@ def run(torch, report):
         report["mesh"] = mesh_cli_run(torch, work, colmap, report["cli"])
         emit(report["mesh"])
         torch.cuda.empty_cache()
+        report["clm_mesh"] = clm_mesh_cli_run(torch, work, colmap, report["clm"])
+        emit(report["clm_mesh"])
+        torch.cuda.empty_cache()
         report["trajectory"] = trajectory_run(torch, work, colmap)
         emit(report["trajectory"])
 
@@ -366,6 +405,10 @@ def run(torch, report):
                     report["clm"]["resume"]["launches"].get(k, 0),
                 "mesh_step_launches": report["mesh_step"]["launches"].get(k, 0),
                 "mesh_launches": report["mesh"]["launches"].get(k, 0),
+                "clm_mesh_step_launches": report["clm_mesh_step"]["launches"].get(k, 0),
+                "clm_mesh_step_pinned_launches":
+                    report["clm_mesh_step"]["pinned_launches"].get(k, 0),
+                "clm_mesh_launches": report["clm_mesh"]["launches"].get(k, 0),
                 "trajectory_launches": {f: r["launches"].get(k, 0) for f, r in
                                         report["trajectory"]["runs"].items()}}
 
@@ -417,7 +460,17 @@ def summary(report):
             "single_median_step_s", "sharded_median_step_s", "single_peak_device_bytes",
             "sharded_peak_device_bytes", "rank_state_bytes", "errors", "ranks")},
         "mesh": {k: report["mesh"][k] for k in ("it_per_s", "cli_it_per_s",
-                                                 "final_test_psnr_minus_cli")}}
+                                                 "final_test_psnr_minus_cli")},
+        "clm_mesh_step": {k: report["clm_mesh_step"][k] for k in (
+            "single_median_batch_s", "mesh_median_batch_s", "single_peak_device_bytes",
+            "mesh_peak_device_bytes", "rank_host_bytes", "rank_card_bytes", "errors")},
+        "clm_mesh_step_ranks": {shape: [{k: r.get(k) for k in (
+            "rank", "mesh_batch_s", "mesh_peak_device_bytes", "rank_host_bytes",
+            "data_sum_ms_per_batch", "data_sum_bytes_per_batch")} for r in rs]
+            for shape, rs in report["clm_mesh_step"]["ranks"].items()},
+        "clm_mesh": {k: report["clm_mesh"][k] for k in (
+            "it_per_s", "clm_it_per_s", "final_test_psnr_minus_clm",
+            "densify_gather_ms_calls", "host_gather_bytes", "peak_device_bytes")}}
 
 
 def _bound(bytes_, flops):
@@ -1862,34 +1915,37 @@ def mesh_rank_check(torch, shape, time_single):
     return result
 
 
-def _mesh_rank(rank, world, port, shape, results):
-    """A spawned rank of the multi-card check: one card, NCCL."""
+def _mesh_rank(rank, world, port, shape, results, kind="no_offload"):
+    """A spawned rank of the multi-card check (`kind`: mesh_rank_check or
+    clm_mesh_rank_check): one card, NCCL."""
     import torch
     import torch.distributed as dist
 
+    rank_check = {"no_offload": mesh_rank_check, "clm": clm_mesh_rank_check}[kind]
     try:
         torch.cuda.set_device(rank)
         dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
                                 world_size=world, rank=rank,
                                 device_id=torch.device("cuda", rank))
         try:
-            results.put((rank, mesh_rank_check(torch, shape, time_single=False)))
+            results.put((rank, rank_check(torch, shape, time_single=False)))
         finally:
             dist.destroy_process_group()
     except Exception as e:  # reported to the parent, which fails the phase
         results.put((rank, {"error": f"{type(e).__name__}: {e}"}))
 
 
-def mesh_ranks(shape, world, timeout=240):
-    """mesh_rank_check at `shape` in `world` spawned processes, one a card;
-    every process is joined or stopped before this returns."""
+def mesh_ranks(shape, world, timeout=240, kind="no_offload"):
+    """mesh_rank_check (or with kind "clm" clm_mesh_rank_check) at `shape` in
+    `world` spawned processes, one a card; every process is joined or
+    stopped before this returns."""
     import multiprocessing as mp
     import queue
 
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     port = _free_port()
-    procs = [ctx.Process(target=_mesh_rank, args=(r, world, port, shape, results))
+    procs = [ctx.Process(target=_mesh_rank, args=(r, world, port, shape, results, kind))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -1972,6 +2028,358 @@ def mesh_step(torch):
                   f"mesh_step {shape} rank {r['rank']} against no_offload: {r['errors']}")
             check(r["rows"] * r["mesh"]["gauss"] == one["capacity"],
                   f"mesh_step {shape}: rank {r['rank']} holds {r['rows']} rows")
+    return result
+
+
+# The clm mesh phases: clm_offload on the (data x gauss) mesh, the host SH
+# rows of a rank's gauss shard in its own host memory.
+CLM_MESH_TURNS = 3
+
+
+def _host_bytes(ctx) -> int:
+    """Bytes of a clm context's host state: SH rows, gradients, moments."""
+    return sum(t.numel() * t.element_size() for t in (
+        ctx.sh_host, ctx.sh_grad_host, ctx.adam.exp_avg, ctx.adam.exp_avg_sq))
+
+
+def clm_mesh_rank_check(torch, shape, time_single):
+    """On this rank's card, inside a started process group: the bench scene
+    with seeded moments (the SH ones on the host) through one
+    clm_offload.train_one_batch on this process alone and one on the
+    `shape` mesh (the state, card moments and context cut to the rank's
+    shard), compared; the mesh batch again with --pinned_host, to the bit.
+    Then CLM_MESH_TURNS batches of the mesh (and, when `time_single`, of the
+    single process, in turns), timed, with peak memory, the data sum's meter
+    and the rank's host and card bytes; the launches are the first mesh
+    batch's."""
+    from dataclasses import replace
+
+    from clm_gs_tpu_torch import _build
+    from clm_gs_tpu_torch.config import Config, init_config
+    from clm_gs_tpu_torch.optim import AdamState
+    from clm_gs_tpu_torch.parallel import mesh as M
+    from clm_gs_tpu_torch.strategies import clm_offload as clm
+    from clm_gs_tpu_torch.utils.bench_scene import make_scene
+
+    mesh = M.make_mesh(shape, "cuda")
+    state, _, cb, gts, lrs, adam_cfg, bg = make_scene()
+    opt = _seeded_moments(torch, state.params, "cuda")
+    w, h, C, n_alive = cb.width, cb.height, state.capacity, state.n_alive
+    host_lrs = dict(lrs, sh=lrs["sh"].cpu())
+    s0 = clm.strip_device_sh(state)
+
+    def placeholder():
+        return torch.zeros((1, SH_COLS), device="cuda")
+
+    o0 = AdamState(replace(opt.mu, sh=placeholder()), replace(opt.nu, sh=placeholder()),
+                   opt.steps)
+    sh_mu0, sh_nu0 = opt.mu.sh.cpu(), opt.nu.sh.cpu()
+
+    def start(pinned, on_mesh):
+        """A context at the seeded start (cut to the rank's shard on the
+        mesh), and the stripped state and card moments to give it."""
+        cfg = Config()
+        cfg.aux.clm_offload = True
+        cfg.tpu.pinned_host = pinned
+        init_config(cfg)
+        ctx = clm.make_context(cfg, state, adam_cfg)
+        ctx.adam.exp_avg, ctx.adam.exp_avg_sq = sh_mu0.clone(), sh_nu0.clone()
+        ctx.adam.step_count = int(opt.steps)
+        if not on_mesh:
+            return cfg, ctx, s0, o0
+        clm.shard_context(ctx, mesh)
+        return cfg, ctx, M.shard_state(s0, mesh), M.shard_capacity_tree(o0, mesh, C)
+
+    def batch(cfg, ctx, st, op):
+        s2, o2, ctx, out = clm.train_one_batch(st, op, ctx, cb, gts, 3, host_lrs,
+                                               adam_cfg, bg, w, h, cfg)
+        torch.cuda.synchronize()
+        return s2, o2, out
+
+    def full(ctx, st, op, out):
+        """(state, moments, StepOut) with every row, the SH ones uploaded
+        from the host; instance counts sorted (the chains' order is
+        step-major)."""
+        if ctx.mesh is not None:
+            rows = st.capacity
+            st, op = (M.gather_capacity_tree(st, mesh, rows),
+                      M.gather_capacity_tree(op, mesh, rows))
+            out = out._replace(visible_any=M.gather_capacity_tree(out.visible_any, mesh,
+                                                                   rows))
+        mu_sh = clm.checkpoint_extra(ctx)["clm.exp_avg"]
+        op = replace(op, mu=replace(op.mu, sh=torch.from_numpy(mu_sh).cuda()))
+        return (clm.materialize(st, ctx), op,
+                out._replace(n_isects=tuple(sorted(out.n_isects))))
+
+    cfg1, ctx1, st1, op1 = start(False, False)
+    single = batch(cfg1, ctx1, st1, op1)
+    cfgm, ctxm, stm, opm = start(False, True)
+    rank_card_bytes = _tensor_bytes(torch, stm) + _tensor_bytes(torch, opm)
+    rank_host_bytes = _host_bytes(ctxm)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    sharded = batch(cfgm, ctxm, stm, opm)
+    first_mesh_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    cfgp, ctxp, stp, opp = start(True, True)
+    _build.reset_launches()
+    pinned = batch(cfgp, ctxp, stp, opp)
+    pinned_launches = dict(_build.LAUNCHES)
+    pinned_equal = {"losses": torch.equal(pinned[2].losses, sharded[2].losses),
+                    "sh_host": torch.equal(ctxp.sh_host, ctxm.sh_host),
+                    "sh_exp_avg": torch.equal(ctxp.adam.exp_avg, ctxm.adam.exp_avg)}
+    for f in GROUPS[:4]:
+        pinned_equal[f] = (torch.equal(getattr(pinned[0].params, f),
+                                       getattr(sharded[0].params, f))
+                           and torch.equal(getattr(pinned[1].mu, f),
+                                           getattr(sharded[1].mu, f)))
+    ctxp.close()
+    del pinned, stp, opp
+    errors = _mesh_errors(torch, state.params, opt.mu, full(ctx1, *single),
+                          full(ctxm, *sharded))
+    losses = sharded[2].losses.tolist()
+    n_isects = list(sharded[2].n_isects)
+    del state, opt, s0, o0, st1, op1, stm, opm
+    torch.cuda.empty_cache()
+
+    # timed batches from where the first ones left the state, in turns
+    runs = {"mesh": [cfgm, ctxm, *sharded[:2], []]}
+    if time_single:
+        runs["single"] = [cfg1, ctx1, *single[:2], []]
+    else:
+        ctx1.close()
+    del single, sharded
+    ctxm.data_sum_s = ctxm.data_sum_bytes = ctxm.n_batches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    peaks = {k: 0 for k in runs}
+    keys = list(runs)
+    for turn in range(CLM_MESH_TURNS):
+        for k in keys if turn % 2 == 0 else keys[::-1]:
+            cfg, ctx, st, op, secs = runs[k]
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            st, op, _ = batch(cfg, ctx, st, op)
+            secs.append(time.perf_counter() - t0)
+            peaks[k] = max(peaks[k], torch.cuda.max_memory_allocated())
+            runs[k][2:4] = [st, op]
+    nb = max(ctxm.n_batches, 1)
+    result = {"shape": shape, "mesh": mesh.shape,
+              "rank": mesh.data_index * mesh.n_gauss + mesh.gauss_index,
+              "device": torch.cuda.current_device(), "gaussians": int(n_alive),
+              "width": w, "height": h, "cameras": gts.shape[0], "capacity": C,
+              "rows": ctxm.sh_host.shape[0], "rank_host_bytes": rank_host_bytes,
+              "rank_card_bytes": rank_card_bytes, "losses": losses,
+              "n_isects": n_isects, "errors": errors, "first_mesh_batch_s": first_mesh_s,
+              "mesh_batch_s": runs["mesh"][4],
+              "mesh_peak_device_bytes": peaks["mesh"],
+              "data_sum_ms_per_batch": ctxm.data_sum_s / nb * 1e3,
+              "data_sum_bytes_per_batch": ctxm.data_sum_bytes / nb,
+              "pinned_equal_to_host_gather": pinned_equal,
+              "launches": launches, "pinned_launches": pinned_launches}
+    if time_single:
+        result["single_batch_s"] = runs["single"][4]
+        result["single_peak_device_bytes"] = peaks["single"]
+    for k in runs:
+        runs[k][1].close()
+    return result
+
+
+def clm_mesh_step(torch):
+    """Phase 6d: clm_offload's batch on a 1x1 mesh in a world-1 NCCL process
+    group on this card, against the single-process batch, timed beside it;
+    then the multi-card meshes where the host has the cards."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0, device_id=torch.device("cuda", 0))
+    try:
+        one = clm_mesh_rank_check(torch, "1x1", time_single=True)
+    finally:
+        dist.destroy_process_group()
+    cards = torch.cuda.device_count()
+    ranks, ranks_s = {}, {}
+    if cards >= 2:
+        world = 4 if cards >= 4 else 2
+        for shape in MESH_SHAPES[world]:
+            t0 = time.perf_counter()
+            ranks[shape] = mesh_ranks(shape, int(shape[0]) * int(shape[2]), kind="clm")
+            ranks_s[shape] = time.perf_counter() - t0
+            print(f"clm_mesh_step: {shape} took {ranks_s[shape]:.1f} s", flush=True)
+            torch.cuda.empty_cache()
+    else:
+        print(f"clm_mesh_step: only world 1 (mesh 1x1) was run: the host has {cards} "
+              "card; 1x2, 2x1 and 2x2 need 2 or 4", flush=True)
+    e = one["errors"]
+    result = {
+        "phase": "clm_mesh_step", "process_group": "nccl, world 1", "shape": "1x1",
+        **{k: one[k] for k in ("gaussians", "capacity", "cameras", "width", "height",
+                               "losses", "n_isects", "errors", "rank_host_bytes",
+                               "rank_card_bytes", "first_mesh_batch_s", "mesh_batch_s",
+                               "single_batch_s", "mesh_peak_device_bytes",
+                               "single_peak_device_bytes", "launches", "pinned_launches",
+                               "pinned_equal_to_host_gather")},
+        "tol": {k: v for k, v in TOL.items() if k.startswith("clm_mesh_")},
+        "single_median_batch_s": statistics.median(one["single_batch_s"]),
+        "mesh_median_batch_s": statistics.median(one["mesh_batch_s"]),
+        "cards": cards, "ranks_s": ranks_s,
+        "ranks": {shape: [{k: r.get(k) for k in (
+            "rank", "device", "mesh", "rows", "rank_host_bytes", "rank_card_bytes",
+            "mesh_batch_s", "mesh_peak_device_bytes", "data_sum_ms_per_batch",
+            "data_sum_bytes_per_batch", "errors", "pinned_equal_to_host_gather",
+            "launches", "error")} for r in rs] for shape, rs in ranks.items()},
+    }
+    check(_clm_mesh_ok(e), f"clm_mesh_step 1x1 against the single process: {e}")
+    check(all(one["pinned_equal_to_host_gather"].values()),
+          f"clm_mesh_step: --pinned_host differs: {one['pinned_equal_to_host_gather']}")
+    check(all(one["launches"].get(k, 0) > 0 for k in KERNELS)
+          and one["pinned_launches"].get(GATHER, 0) > 0
+          and not one["launches"].get(GATHER, 0),
+          f"clm_mesh_step: launches {one['launches']}, pinned {one['pinned_launches']}")
+    for shape, rs in ranks.items():
+        for r in rs:
+            check("error" not in r, f"clm_mesh_step {shape} rank: {r.get('error')}")
+            check(_clm_mesh_ok(r["errors"]) and all(r["pinned_equal_to_host_gather"].values()),
+                  f"clm_mesh_step {shape} rank {r['rank']}: {r['errors']}, "
+                  f"{r['pinned_equal_to_host_gather']}")
+            check(r["rows"] * r["mesh"]["gauss"] == one["capacity"]
+                  and (r["data_sum_bytes_per_batch"] > 0) == (r["mesh"]["data"] > 1),
+                  f"clm_mesh_step {shape}: rank {r['rank']} holds {r['rows']} rows, "
+                  f"sums {r['data_sum_bytes_per_batch']} bytes a batch")
+    return result
+
+
+def _clm_mesh_ok(e):
+    return (e["loss_rel"] <= TOL["clm_mesh_loss_rel"]
+            and e["param_step_rel"] <= TOL["clm_mesh_step_rel"]
+            and e["grad_rel"] <= TOL["clm_mesh_grad_rel"]
+            and e["accum_rel"] <= TOL["clm_mesh_accum_rel"]
+            and abs(e["accum_increment_ratio"] - 1.0) <= TOL["clm_mesh_accum_rel"]
+            and e["denom_equal"] and e["visible_equal"] and e["n_isects_equal"])
+
+
+def clm_mesh_cli_run(torch, work, scene, clm_run):
+    """Phase 9c: `main` under --clm_offload with FULL_TRAIN_ARGS on the
+    scene and decoded images of phase 7 in `work`, in a process group of one
+    started by the --dist_* flags, --mesh_shape 1x1 (launch counts over the
+    run; the densification's gathers of the whole state, card and host,
+    timed); then `python -m clm_gs_tpu_torch.train --clm_offload` resuming
+    its checkpoint on one card, without a process group, to iteration 120;
+    checked against phase 9's `clm_run`."""
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    from clm_gs_tpu_torch import _build
+    from clm_gs_tpu_torch.models import gaussians as G
+    from clm_gs_tpu_torch.strategies import clm_offload as clm
+    from clm_gs_tpu_torch.train import main as train_main
+    from clm_gs_tpu_torch.utils.synthetic_colmap import FULL_TRAIN_ARGS
+
+    root = Path(__file__).resolve().parent
+    base = [a for a in FULL_TRAIN_ARGS if a != "--no_offload"] + ["--clm_offload"]
+    args = base + ["--mesh_shape", "1x1", "--dist_coordinator",
+                   f"127.0.0.1:{_free_port()}", "--dist_num_processes", "1",
+                   "--dist_process_id", "0"]
+    out = f"{work}/clm_mesh"
+    argv = ["-s", scene, "-m", out, "--decode_dataset_path", f"{work}/decoded",
+            "--quiet"] + args
+    last_ctx = []
+    real = clm.train_one_batch
+
+    def spy(*a, **k):
+        res = real(*a, **k)
+        last_ctx[:] = [res[2]]
+        return res
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    clm.train_one_batch = spy
+    t0 = time.perf_counter()
+    try:
+        state, opt = train_main(argv)
+    finally:
+        clm.train_one_batch = real
+    run_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    group_left = dist.is_initialized()
+    text = Path(out, "python.log").read_text()
+    log = _parse_log(text)
+    mesh_line = [ln for ln in text.splitlines() if ln.startswith("multi-chip mesh")]
+    overlap = [ln for ln in text.splitlines() if ln.startswith("clm overlap: ")]
+
+    ply = Path(out, "point_cloud", "iteration_200", "point_cloud.ply")
+    back = G.load_ply(str(ply), device=state.alive.device)
+    ply_equal = all(torch.equal(getattr(back.params, f)[back.alive],
+                                getattr(state.params, f)[state.alive]) for f in GROUPS)
+    ply_rows, n_end, cap_end = back.n_alive, state.n_alive, state.capacity
+    placeholder = [tuple(opt.mu.sh.shape), tuple(opt.nu.sh.shape)]
+    del back, state, opt
+    torch.cuda.empty_cache()
+
+    ckpt = Path(out, "checkpoints", "101")
+    out2 = f"{work}/clm_mesh_resume"
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "clm_gs_tpu_torch.train", "-s", scene, "-m", out2,
+         "--decode_dataset_path", f"{work}/decoded", "--quiet", "--start_checkpoint",
+         str(ckpt), "--do_not_save"]
+        + [a for a in base if a != "--enable_timer"] + ["--iterations", "120"],
+        cwd=root, capture_output=True, text=True, check=False, timeout=600)
+    resume_s = time.perf_counter() - t0
+    log2_text = (Path(out2, "python.log").read_text()
+                 if Path(out2, "python.log").exists() else "")
+    log2 = _parse_log(log2_text)
+
+    e2e_s, it_s = log["end2end"] or (float("nan"), float("nan"))
+    psnr_gap = (log["test_psnr"] or [float("nan")])[-1] - clm_run["test_psnr"][-1]
+    timers = {k: v for k, v in log["timers"].items()}
+    gather = {k: timers.get(k, (0.0, 0)) for k in ("mesh.gather", "clm.host_gather",
+                                                     "clm.host_shard", "densify")}
+    result = {
+        "phase": "clm_mesh", "args": args, "run_s": run_s, "mesh_line": mesh_line,
+        "gaussians_start": log.get("initialized"), "gaussians_end": n_end,
+        "clm_gaussians_end": clm_run["gaussians_end"], "capacity_end": cap_end,
+        "capacity_growths": log["capacity"], "densify_counts": log["densify"],
+        "clm_densify_counts": clm_run["densify_counts"], "resets": log["resets"],
+        "test_psnr": log["test_psnr"], "final_test_psnr_minus_clm": psnr_gap,
+        "losses": log["losses"], "end2end_s": e2e_s, "it_per_s": it_s,
+        "clm_it_per_s": clm_run["it_per_s"],
+        "timer_mean_ms": {k: v[0] / max(v[1], 1) for k, v in timers.items()},
+        "densify_gather_ms_calls": gather,
+        "host_gather_bytes": last_ctx[0].host_gather_bytes,
+        "overlap_line": overlap[-1] if overlap else None,
+        "peak_device_bytes": peak, "clm_peak_device_bytes": clm_run["peak_device_bytes"],
+        "launches": launches, "ply_rows": ply_rows, "ply_equal": ply_equal,
+        "sh_placeholder_moments": placeholder, "process_group_left": group_left,
+        "resume": {"rc": res.returncode, "s": resume_s, "resumed": "Resumed from" in log2_text,
+                   "mesh_line": "multi-chip mesh" in log2_text,
+                   "end2end": log2["end2end"], "test_psnr": log2["test_psnr"]},
+    }
+    if res.returncode != 0:
+        print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
+    finite = all(v == v and abs(v) != float("inf") for v in log["losses"])
+    check(finite and log["losses"], f"clm_mesh: losses {log['losses']}")
+    check(mesh_line == ["multi-chip mesh (clm gauss sharding): {'data': 1, 'gauss': 1}"]
+          and not group_left, f"clm_mesh: mesh line {mesh_line}, group left {group_left}")
+    check(all(launches.get(k, 0) > 0 for k in KERNELS),
+          f"clm_mesh: a kernel of the path never launched: {launches}")
+    check(log["capacity"] and log["resets"] >= 1 and gather["clm.host_gather"][1] >= 1,
+          f"clm_mesh: growths {log['capacity']}, resets {log['resets']}, gathers {gather}")
+    check(len(log["test_psnr"]) >= 2 and log["test_psnr"][-1] > log["test_psnr"][0]
+          and abs(psnr_gap) <= TOL["mesh_psnr_db"],
+          f"clm_mesh: test PSNR {log['test_psnr']}, {psnr_gap} dB from the clm run's")
+    check(ply_rows == n_end and ply_equal and placeholder == [(1, SH_COLS)] * 2,
+          f"clm_mesh: PLY rows {ply_rows} vs {n_end}, equal {ply_equal}, "
+          f"placeholder {placeholder}")
+    last = (log2_text.rstrip().splitlines() or [""])[-1]
+    check(res.returncode == 0 and result["resume"]["resumed"]
+          and not result["resume"]["mesh_line"] and last.startswith("end2end total_time:"),
+          f"clm_mesh: the single-card resume failed (rc {res.returncode}): {last}")
     return result
 
 

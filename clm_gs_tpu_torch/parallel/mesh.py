@@ -13,7 +13,10 @@ x n_gauss + gauss index, so a gauss group is consecutive ranks). Capacities
 come from `next_capacity`, a multiple of the capacity granule, which any
 realistic gauss axis divides; `shard_capacity_tree` raises where it does not.
 Densification, saves, checkpoints and eval work on the whole state:
-`gather_capacity_tree` all-gathers it over the gauss axis.
+`gather_capacity_tree` all-gathers it over the gauss axis. Host buffers
+(clm_offload's SH rows and moments) follow the same split:
+`shard_host_rows` cuts a rank's rows, `gather_host_rows` brings back the
+whole buffer, through the card when the group runs NCCL.
 """
 
 from __future__ import annotations
@@ -126,6 +129,34 @@ def gather_capacity_tree(tree, mesh: Mesh, local_capacity: int):
         return x
 
     return map_tree(whole, tree)
+
+
+def host_copy(x: torch.Tensor, pin: bool) -> torch.Tensor:
+    """A contiguous copy of `x` on the host, page-locked when `pin`."""
+    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=pin)
+    out.copy_(x)
+    return out
+
+
+def shard_host_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This rank's C/n_gauss rows of a (C, ...) host tensor, as a copy
+    (page-locked where `x` is)."""
+    C = x.shape[0]
+    if C % mesh.n_gauss:
+        raise ValueError(f"capacity {C} is not a multiple of the gauss axis {mesh.n_gauss}")
+    n = C // mesh.n_gauss
+    return host_copy(x[mesh.gauss_index * n:(mesh.gauss_index + 1) * n], x.is_pinned())
+
+
+def gather_host_rows(x: torch.Tensor, mesh: Mesh, device) -> torch.Tensor:
+    """Inverse of `shard_host_rows` on every rank: the gauss group's (n, ...)
+    host tensors concatenated in rank order, on the host (page-locked where
+    `x` is). NCCL carries only card tensors, so there the rows go through
+    the card `device`; gloo gathers them on the host."""
+    if dist.get_backend(mesh.gauss_group) == "nccl":
+        whole = gather_rows(x.to(device, non_blocking=True), mesh.gauss_group, mesh.n_gauss)
+        return host_copy(whole, x.is_pinned())
+    return gather_rows(x, mesh.gauss_group, mesh.n_gauss)
 
 
 def data_slice(batch, mesh: Mesh):

@@ -69,6 +69,30 @@ class GatherRows(torch.autograd.Function):
         return grad[ctx.index * n:(ctx.index + 1) * n], None, None, None
 
 
+def table_rows(means2d, conics, colors, opac, depths, radii) -> torch.Tensor:
+    """The (n, ROW_COLS) rows the rasterizer reads; depth and radius carry no
+    gradient."""
+    return torch.cat([means2d, conics, colors, opac[:, None], depths.detach()[:, None],
+                      radii.detach()[:, None]], dim=1)
+
+
+def gather_table(mesh: Mesh, rows):
+    """This rank's (n, ROW_COLS) rows padded with zero rows (radius 0:
+    culled) to the gauss group's largest n, then all-gathered in rank order
+    (`GatherRows`). Returns (table, the padded count a rank)."""
+    n_max = torch.tensor([rows.shape[0]], dtype=torch.int64, device=rows.device)
+    dist.all_reduce(n_max, op=dist.ReduceOp.MAX, group=mesh.gauss_group)
+    n_max = int(n_max)
+    rows = torch.cat([rows, rows.new_zeros(n_max - rows.shape[0], ROW_COLS)])
+    return GatherRows.apply(rows, mesh.gauss_group, mesh.n_gauss, mesh.gauss_index), n_max
+
+
+def rasterize_table(table, width: int, height: int, background):
+    """`ops/rasterize.rasterize` of a gathered table: (image, alpha, n_isects)."""
+    return rasterize(table[:, 0:2], table[:, 2:5], table[:, 5:8], table[:, 8],
+                     table[:, 9], table[:, 10], width, height, background)
+
+
 def make_sharded_train_step(
     mesh: Mesh, width: int, height: int, sparse_adam: bool = False,
     lambda_dssim: float = 0.2, loss_scale: float = 1.0,
@@ -84,15 +108,9 @@ def make_sharded_train_step(
             leaf, alive, vm, K, campos, sh_degree, width, height)
         means2d.retain_grad()
         idx = torch.nonzero(radii > 0).squeeze(1)
-        n_vis = torch.tensor([idx.numel()], dtype=torch.int64, device=radii.device)
-        dist.all_reduce(n_vis, op=dist.ReduceOp.MAX, group=mesh.gauss_group)
-        rows = torch.cat([means2d, conics, colors, opac[:, None],
-                          depths.detach()[:, None], radii.detach()[:, None]], dim=1)[idx]
-        rows = torch.cat([rows, rows.new_zeros(int(n_vis) - idx.numel(), ROW_COLS)])
-        table = GatherRows.apply(rows, mesh.gauss_group, mesh.n_gauss, mesh.gauss_index)
-        image, _, n_isects = rasterize(
-            table[:, 0:2], table[:, 2:5], table[:, 5:8], table[:, 8], table[:, 9],
-            table[:, 10], width, height, background)
+        rows = table_rows(means2d, conics, colors, opac, depths, radii)[idx]
+        table, _ = gather_table(mesh, rows)
+        image, _, n_isects = rasterize_table(table, width, height, background)
         loss = photometric_loss(image, gt, lambda_dssim, loss_scale)
         return loss, means2d, radii, n_isects, idx.numel()
 

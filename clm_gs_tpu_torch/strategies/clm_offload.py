@@ -1,6 +1,6 @@
 """clm_offload strategy: the selection-critical attributes on the card, the
 SH coefficients streamed from the host by visibility
-(clm_gs_tpu/strategies/clm_offload.py, single camera chain).
+(clm_gs_tpu/strategies/clm_offload.py).
 
 Placement: xyz, opacity, log_scale and quat (11 floats a Gaussian) and
 their Adam moments stay on the card. The 48 SH floats, their gradients and
@@ -45,6 +45,35 @@ rewritten only after the event of their last copy. On the CPU there are no
 streams and the same code runs in order. Sizes are exact: the JAX package's
 padding to `v_cap` and its bucketed transfer sizes have no counterpart, and
 `h2d_bytes`/`d2h_bytes` count the bytes each batch moves.
+
+On a (data x gauss) mesh (`shard_context`; one process a card) rank (d, g)
+holds C/n_gauss rows of everything: the card state (`parallel/mesh.py`)
+and, in its own host memory, the SH rows of its gauss shard, their
+gradients and moments. No SH row crosses ranks. The n_data ranks of a gauss
+group hold bit-identical copies of its host state. Per batch:
+
+  1. every rank filters its own rows for all B cameras (local ids); the
+     Hamming matrix and visible counts are summed over the gauss group
+     (`offload_common.order_inputs`), so every rank finds the same tour;
+  2. where the data axis divides the batch, the tour is cut into n_data
+     chains of S = B / n_data cameras, run in lockstep: data rank d runs
+     cameras order[d*S:(d+1)*S], step s the s-th of each, with retention
+     within the chain. Finish sets are bucketed by step: a row finishes at
+     its last step over every chain (JAX `_order_and_finish_sets(...,
+     n_chains)`). Otherwise one chain, the whole tour on every data rank;
+  3. each camera's micro step gathers the gauss group's projected rows
+     (`offload_common.micro_step_visible`); the rank gets the gradients of
+     its own compact rows;
+  4. once step s's download is scatter-added, finish set s's gradient rows
+     are summed over the data group (one all_reduce; none with one chain),
+     then the host Adam runs on them, alike on every data replica;
+  5. the card's gradients and statistics are summed over the data group in
+     one all_reduce, the losses and instance counts gathered in step-major
+     order (each step's chains in data order), and the card's Adam runs on
+     the rank's rows.
+
+Every collective is issued by the main thread, in the same order on every
+rank, on the compute stream; the host-Adam worker never calls one.
 """
 
 from __future__ import annotations
@@ -57,8 +86,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from clm_gs_tpu_torch.models.gaussians import GaussianParams, GaussianState, host_zeros
 from clm_gs_tpu_torch.optim import AdamConfig, adam_step
+from clm_gs_tpu_torch.parallel import mesh as M
 from clm_gs_tpu_torch.strategies import offload_common as oc
 from clm_gs_tpu_torch.strategies.no_offload import StepOut
 from clm_gs_tpu_torch.utils import hostmem, native
@@ -123,6 +155,16 @@ class ClmContext:
     d2h_bytes: int = 0
     # --pinned_host: the card gathers the SH rows out of sh_host itself
     card_gather: bool = False
+    # the mesh whose gauss shard the buffers hold (`shard_context`), or None
+    mesh: Optional[M.Mesh] = None
+    # finish sets' gradient rows summed over the data group: staging, and
+    # the meter (sums over batches)
+    sum_rows: Optional[_Staging] = None
+    data_sum_s: float = 0.0
+    data_sum_bytes: int = 0
+    # bytes of the whole host state (SH rows and both moments) that
+    # `unshard_context` assembled, over all its calls
+    host_gather_bytes: int = 0
 
     @property
     def host_work_s(self) -> float:
@@ -148,6 +190,7 @@ def _context(sh_host: torch.Tensor, adam_cfg: AdamConfig, device, cfg) -> ClmCon
         up_idx=_Staging(1, torch.int32, on_card),
         down=_Staging(SH_COLS, torch.float32, on_card),
         card_gather=bool(cfg.tpu.pinned_host),
+        sum_rows=_Staging(SH_COLS, torch.float32, on_card),
     )
 
 
@@ -180,10 +223,52 @@ def make_context_from_host(cfg, sh_host: torch.Tensor, adam_cfg: AdamConfig,
     return _context(sh_host, adam_cfg, device, cfg)
 
 
+def shard_context(ctx: ClmContext, mesh: M.Mesh, timers=None) -> ClmContext:
+    """The context cut to this rank's gauss shard, in place: C/n_gauss rows
+    of the host SH buffer, its gradients and both moments (page-locked
+    copies where the buffers were); it then trains on `mesh`."""
+    tm = timers if timers is not None else Timer(enabled=False)
+    tm.start("clm.host_shard")
+    ctx.sh_host = M.shard_host_rows(ctx.sh_host, mesh)
+    ctx.sh_grad_host = M.shard_host_rows(ctx.sh_grad_host, mesh)
+    for k in ("exp_avg", "exp_avg_sq"):
+        setattr(ctx.adam, k, M.shard_host_rows(getattr(ctx.adam, k), mesh))
+    ctx.mesh = mesh
+    tm.stop("clm.host_shard")
+    return ctx
+
+
+def _whole_rows(ctx: ClmContext, x: torch.Tensor) -> torch.Tensor:
+    """The whole buffer of a host buffer's shard (a collective over the
+    gauss group), or `x` itself off a mesh."""
+    if ctx.mesh is None:
+        return x
+    return M.gather_host_rows(x, ctx.mesh, ctx.device)
+
+
+def unshard_context(ctx: ClmContext, timers=None) -> M.Mesh:
+    """Inverse of `shard_context`, in place and alike on every rank: the
+    whole host SH buffer and moments gathered over the gauss group, the
+    gradients zero (as between batches). Returns the mesh."""
+    tm = timers if timers is not None else Timer(enabled=False)
+    tm.start("clm.host_gather")
+    mesh = ctx.mesh
+    ctx.sh_host = _whole_rows(ctx, ctx.sh_host)
+    for k in ("exp_avg", "exp_avg_sq"):
+        setattr(ctx.adam, k, _whole_rows(ctx, getattr(ctx.adam, k)))
+    ctx.sh_grad_host = host_zeros(ctx.sh_host.shape[0], SH_COLS, ctx.device)
+    ctx.host_gather_bytes += 3 * _nbytes(ctx.sh_host)
+    ctx.mesh = None
+    tm.stop("clm.host_gather")
+    return mesh
+
+
 def materialize_host(state: GaussianState, ctx: ClmContext) -> GaussianState:
     """The state with the host SH buffer itself as its SH field (no copy):
-    for the PLY and tensor writers, which gather rows to the host."""
-    return replace(state, params=replace(state.params, sh=ctx.sh_host))
+    for the PLY and tensor writers, which gather rows to the host. On a
+    mesh, `state` is the whole state and the buffer is gathered (a
+    collective)."""
+    return replace(state, params=replace(state.params, sh=_whole_rows(ctx, ctx.sh_host)))
 
 
 def strip_device_sh(state: GaussianState) -> GaussianState:
@@ -193,8 +278,9 @@ def strip_device_sh(state: GaussianState) -> GaussianState:
 
 
 def materialize(state: GaussianState, ctx: ClmContext) -> GaussianState:
-    """The full state, its SH rows uploaded from the host buffer (a copy)."""
-    sh = ctx.sh_host.to(state.alive.device, copy=True)
+    """The full state, its SH rows uploaded from the host buffer (a copy; on
+    a mesh `state` is the whole state, the buffer gathered first)."""
+    sh = _whole_rows(ctx, ctx.sh_host).to(state.alive.device, copy=True)
     return replace(state, params=replace(state.params, sh=sh))
 
 
@@ -217,24 +303,32 @@ def grow_context(ctx: ClmContext, new_cap: int, cfg, timers=None) -> ClmContext:
     return ctx
 
 
-def _order_and_finish_sets(ids_host, dist, alive, reorder_min_last: bool):
+def _order_and_finish_sets(ids_host, dist_m, alive, reorder_min_last: bool,
+                           counts=None, n_chains: int = 1):
     """Camera order and finish sets. `ids_host`: each camera's ascending
-    int32 visible ids; `dist` (B, B) int32; `alive` (C,) bool, all on the
-    host. Returns (order (B,) int32, finish_sets: the ascending int32 rows
-    whose last camera is order[s], for each s, never: the ascending live
-    rows no camera sees)."""
+    int32 visible ids; `dist_m` (B, B) int32; `alive` (C,) bool; `counts`
+    (B,) the cameras' visible counts (on a gauss shard the whole scene's;
+    by default the lengths of `ids_host`), all on the host. With n_chains >
+    1 the tour is cut into n_chains segments of S = B / n_chains cameras run
+    in lockstep, chain d the cameras order[d*S:(d+1)*S], and a row finishes
+    at its last step over every chain. Returns (order (B,) int32,
+    finish_sets: for each step s the ascending int32 rows that finish
+    there, never: the ascending live rows no camera sees)."""
     B = len(ids_host)
-    order = native.find_tour(dist)
+    order = native.find_tour(dist_m)
+    if counts is None:
+        counts = torch.tensor([len(i) for i in ids_host])
     if reorder_min_last and B > 1:
         # the sparsest camera last
-        counts = torch.tensor([len(ids_host[int(c)]) for c in order])
-        k = int(torch.argmin(counts))
+        k = int(torch.argmin(counts[order.long()]))
         order = torch.cat([order[k + 1:], order[:k + 1]])
+    S = B // n_chains
     last_use = torch.full((alive.shape[0],), -1, dtype=torch.int16)
-    for s in range(B):
-        native.stamp_rows(last_use, ids_host[int(order[s])], s)
+    for s in range(S):  # step-major: a later step overwrites an earlier one
+        for d in range(n_chains):
+            native.stamp_rows(last_use, ids_host[int(order[d * S + s])], s)
     vis = native.nonzero_stamp(last_use, None, 0)
-    by_pos, bucket_counts = native.counting_sort_perm(last_use[vis.long()], B)
+    by_pos, bucket_counts = native.counting_sort_perm(last_use[vis.long()], S)
     finish_sets = list(torch.split(vis[by_pos.long()], bucket_counts.tolist()))
     never = native.nonzero_stamp(last_use, alive, 1)
     return order, finish_sets, never
@@ -346,17 +440,37 @@ def _timed_sparse_step(ctx: ClmContext, rows, grad_scale: float, step: int):
     ctx.adam_work_s += time.perf_counter() - t0
 
 
+def _sum_over_data(ctx: ClmContext, ids):
+    """The host gradient rows `ids` (a finish set) summed over the data
+    group, in place (one all_reduce; through the card under NCCL): every
+    data rank then holds the whole batch's gradients of those rows."""
+    t0 = time.perf_counter()
+    rows = native.gather_rows(ctx.sh_grad_host, ids, out=ctx.sum_rows.take(len(ids)))
+    if ctx.comm is None:
+        dist.all_reduce(rows, group=ctx.mesh.data_group)
+    else:
+        summed = rows.to(ctx.device, non_blocking=True)
+        dist.all_reduce(summed, group=ctx.mesh.data_group)
+        rows.copy_(summed)
+    native.scatter_add_rows(ctx.sh_grad_host, rows, ids, accumulate=False)
+    ctx.data_sum_bytes += _nbytes(rows)
+    ctx.data_sum_s += time.perf_counter() - t0
+
+
 def _drain(ctx: ClmContext, pending, futures, grad_scale: float, step: int,
            stop_update: bool):
     """Wait for one download, scatter-add its rows into the host gradients,
-    then submit the finish set whose last gradients those were."""
-    host, landed, ids, rows = pending
+    sum the finish set over the data group where the chains split the
+    batch, then submit the finish set whose last gradients those were."""
+    host, landed, ids, rows, summed = pending
     if landed is not None:
         landed.synchronize()
     t0 = time.perf_counter()
     if len(ids):
         native.scatter_add_rows(ctx.sh_grad_host, host, ids)
     ctx.scatter_work_s += time.perf_counter() - t0
+    if summed is not None and len(summed) and not stop_update:
+        _sum_over_data(ctx, summed)
     if len(rows) and not stop_update:
         futures.append(ctx.executor.submit(_timed_sparse_step, ctx, rows,
                                            grad_scale, step))
@@ -364,28 +478,38 @@ def _drain(ctx: ClmContext, pending, futures, grad_scale: float, step: int,
 
 def train_one_batch(state, opt_state, ctx: ClmContext, cams, gt, sh_degree,
                     lrs, adam_cfg, background, width, height, cfg, timers=None):
-    """One batch (module docstring). `lrs` holds the four card groups' rates
-    on the card and "sh", (48,), read on the host. Returns (state, opt_state,
-    ctx, StepOut) with the losses in the cameras' TSP order."""
+    """One batch (module docstring); on the context's mesh, this rank's
+    chain of it. `lrs` holds the four card groups' rates on the card and
+    "sh", (48,), read on the host. Returns (state, opt_state, ctx, StepOut)
+    with the losses in the cameras' TSP order (on a mesh with chains,
+    step-major: each step's cameras in data order)."""
     tm = timers if timers is not None else Timer(enabled=False)
     p = state.params
     bsz = gt.shape[0]
+    mesh = ctx.mesh
+    # camera chains: data rank d runs segment d of the tour where the data
+    # axis divides the batch; else every data rank runs the whole tour
+    n_chains = mesh.n_data if mesh is not None and bsz % mesh.n_data == 0 else 1
+    chain = mesh.data_index if n_chains > 1 else 0
 
     # 1. visibility filters on the card, the id lists brought to the host
     tm.start("clm.filters")
+    row0 = 0 if mesh is None else mesh.gauss_index * ctx.sh_host.shape[0]
     F = oc.calculate_filters(p.xyz, p.quat, p.log_scale, state.alive, cams.viewmats,
-                             cams.Ks, width, height, cfg.model.radius_clip)
+                             cams.Ks, width, height, cfg.model.radius_clip,
+                             sample_phase=-row0 % oc.SAMPLE_STRIDE)
     flat = torch.cat(F.ids).cpu()
     ids_host = list(torch.split(flat, F.counts.tolist()))
     tm.stop("clm.filters")
 
     # 2-3. camera order and finish sets on the host
     tm.start("clm.order")
-    dist = oc.hamming_distance_matrix(F.sample).cpu()
+    dist_m, counts = oc.order_inputs(F, mesh)
     alive_host = state.alive.cpu()
-    ctx.d2h_bytes += _nbytes(flat) + _nbytes(dist) + _nbytes(alive_host)
+    ctx.d2h_bytes += _nbytes(flat) + _nbytes(dist_m) + _nbytes(alive_host)
     order, finish_sets, never = _order_and_finish_sets(
-        ids_host, dist, alive_host, cfg.aux.reorder_by_min_sparsity_at_end)
+        ids_host, dist_m, alive_host, cfg.aux.reorder_by_min_sparsity_at_end, counts,
+        n_chains)
     tm.stop("clm.order")
 
     ctx.adam.lr_cols = lrs["sh"].to("cpu", torch.float32).contiguous()
@@ -395,16 +519,18 @@ def train_one_batch(state, opt_state, ctx: ClmContext, cams, gt, sh_degree,
     sparse_adam = cfg.aux.sparse_adam
     stop_update = cfg.debug.stop_update_param
 
-    # 4. the camera loop. A camera's gradient download is drained one
-    # camera later, once the next camera's work is queued on the card.
+    # 4. the camera loop over this rank's chain. A camera's gradient
+    # download is drained one camera later, once the next camera's work is
+    # queued on the card.
     acc = oc.make_clm_acc(p)
     campos = cams.camtoworlds[:, :3, 3]
     losses, futures = [], []
-    pending = None  # (host rows, landed event, their ids, finish rows)
+    pending = None  # (host rows, landed event, their ids, finish rows, rows to sum)
     shc = grad_buf = None  # the working set's SH rows and gradients
-    B = len(order)
-    for pos in range(B):
-        cam = int(order[pos])
+    S = len(order) // n_chains
+    mine = order[chain * S:(chain + 1) * S]
+    for pos in range(S):
+        cam = int(mine[pos])
         ids_h = ids_host[cam]
         if shc is None:  # the first camera, or retention off
             tm.start("clm.fetch_h2d")
@@ -417,28 +543,37 @@ def train_one_batch(state, opt_state, ctx: ClmContext, cams, gt, sh_degree,
         loss, grad_buf = oc.clm_fused_step(
             p, shc, grad_buf, F.ids[cam], cams.viewmats[cam], cams.Ks[cam],
             campos[cam], gt[cam], acc, sh_degree, background, width, height,
-            lambda_dssim=cfg.opt.lambda_dssim, loss_scale=cfg.opt.lr_scale_loss)
+            lambda_dssim=cfg.opt.lambda_dssim, loss_scale=cfg.opt.lr_scale_loss,
+            mesh=mesh)
         losses.append(loss)
         tm.stop("clm.micro", sync=loss)
 
         rows = finish_sets[pos]
+        summed = rows if n_chains > 1 else None
         if pos == 0 and not sparse_adam and len(never):
             rows = torch.cat([never, rows])
-        if cfg.tpu.retention and pos + 1 < B:
+        if cfg.tpu.retention and pos + 1 < S:
             tm.start("clm.advance")
             shc, grad_buf, g_out, g_ids = _advance(ctx, shc, grad_buf, ids_h,
-                                                   ids_host[int(order[pos + 1])])
+                                                   ids_host[int(mine[pos + 1])])
             tm.stop("clm.advance")
         else:  # the last camera, or retention off: flush the whole set
             g_out, g_ids = grad_buf, ids_h
             shc = grad_buf = None
         ctx.d2h_bytes += _nbytes(g_out)
-        new_pending = (*_download(ctx, g_out), g_ids, rows)
+        new_pending = (*_download(ctx, g_out), g_ids, rows, summed)
         if pending is not None:
             tm.start("clm.d2h_scatter")
             _drain(ctx, pending, futures, grad_scale, step, stop_update)
             tm.stop("clm.d2h_scatter")
         pending = new_pending
+
+    # the chains' card gradients, statistics and visibility summed over the
+    # data group in one all_reduce; losses and instance counts gathered
+    losses = torch.stack(losses)
+    n_isects = tuple(acc.n_isects)
+    if n_chains > 1:
+        acc, losses, n_isects = _sum_chains(acc, losses, n_isects, mesh)
 
     # 5. Adam of the four card groups; the SH placeholder passes through
     if stop_update:
@@ -465,8 +600,27 @@ def train_one_batch(state, opt_state, ctx: ClmContext, cams, gt, sh_degree,
         xyz_grad_accum=state.xyz_grad_accum + acc.accum,
         denom=state.denom + acc.denom, max_radii2d=state.max_radii2d,
     )
-    return new_state, new_opt, ctx, StepOut(torch.stack(losses), max(acc.n_isects),
-                                            acc.vis_any, tuple(acc.n_isects))
+    return new_state, new_opt, ctx, StepOut(losses, max(n_isects), acc.vis_any, n_isects)
+
+
+def _sum_chains(acc: oc.ClmAcc, losses, n_isects, mesh: M.Mesh):
+    """The data group's chains combined: the accumulators summed (visibility
+    as a count) in one all_reduce, and the (S,) losses and instance counts
+    of each chain gathered into the batch's (B,), step-major."""
+    parts = [acc.g_xyz, acc.g_opacity[:, None], acc.g_log_scale, acc.g_quat,
+             acc.accum[:, None], acc.denom[:, None], acc.vis_any[:, None].float()]
+    flat = torch.cat(parts, dim=1)
+    dist.all_reduce(flat, group=mesh.data_group)
+    g_xyz, g_op, g_ls, g_q, accum, denom, vis = torch.split(
+        flat, [p.shape[1] for p in parts], dim=1)
+    acc = replace(acc, g_xyz=g_xyz, g_opacity=g_op[:, 0], g_log_scale=g_ls,
+                  g_quat=g_q, accum=accum[:, 0], denom=denom[:, 0], vis_any=vis[:, 0] > 0)
+    S = losses.shape[0]
+    mine = torch.stack([losses.double(), torch.tensor(
+        n_isects, dtype=torch.float64, device=losses.device)], dim=1)
+    every = M.gather_rows(mine, mesh.data_group, mesh.n_data)
+    every = every.view(mesh.n_data, S, 2).transpose(0, 1).reshape(-1, 2)
+    return acc, every[:, 0].float(), tuple(int(v) for v in every[:, 1].tolist())
 
 
 def post_densify(ctx: ClmContext, state: GaussianState, info) -> ClmContext:
@@ -496,11 +650,12 @@ def post_opacity_reset(ctx: ClmContext, state: GaussianState) -> ClmContext:
 
 def checkpoint_extra(ctx: ClmContext) -> dict:
     """The host SH rows, moments and step count, for `strategy_extra.npz`
-    (the JAX package's keys)."""
+    (the JAX package's keys); on a mesh every row, gathered (a
+    collective)."""
     return {
-        "clm.sh_host": ctx.sh_host.numpy(),
-        "clm.exp_avg": ctx.adam.exp_avg.numpy(),
-        "clm.exp_avg_sq": ctx.adam.exp_avg_sq.numpy(),
+        "clm.sh_host": _whole_rows(ctx, ctx.sh_host).numpy(),
+        "clm.exp_avg": _whole_rows(ctx, ctx.adam.exp_avg).numpy(),
+        "clm.exp_avg_sq": _whole_rows(ctx, ctx.adam.exp_avg_sq).numpy(),
         "clm.step_count": np.asarray(ctx.adam.step_count),
     }
 
@@ -523,11 +678,13 @@ def eval_one_cam(state_and_ctx, viewmat, Kmat, camtoworld, sh_degree: int,
                  background, width: int, height: int):
     """Eval of one camera: its filter, its SH rows gathered from the host
     buffer (on the card under card_gather), the render of the compact set.
-    `state_and_ctx` is (state, context). Returns (image, n_isects)."""
+    `state_and_ctx` is (state, context). On the context's mesh every rank
+    calls it for the same camera: each renders the gauss group's gathered
+    rows, and no SH row leaves its rank. Returns (image, n_isects)."""
     state, ctx = state_and_ctx
     p = state.params
     F = oc.calculate_filters(p.xyz, p.quat, p.log_scale, state.alive, viewmat[None],
                              Kmat[None], width, height, 0.0)
     shc = _fetch(ctx, F.ids[0])
     return oc.eval_visible(p, F.ids[0], shc, viewmat, Kmat, camtoworld[:3, 3],
-                           sh_degree, background, width, height)
+                           sh_degree, background, width, height, ctx.mesh)

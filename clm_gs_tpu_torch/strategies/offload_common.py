@@ -10,6 +10,16 @@ accumulators with `index_add_`. The ids are unique, so each row receives
 exactly one addition: the torch form of the JAX package's inverse-map
 gather. The JAX package pads every list to a fixed `v_cap` with the id C;
 the port has no padding, so every compact row is valid.
+
+On a (data x gauss) mesh (`parallel/mesh.py`) a rank holds C/n_gauss rows
+and its ids are local. Its filter samples the rows whose global id is a
+multiple of the stride, so the gauss ranks' Hamming matrices and visible
+counts sum to the whole scene's (`order_inputs`). The micro step and the
+eval render project and shade the rank's compact set; the gauss group's
+rows are gathered into one table (`parallel/shard.gather_table`, whose
+backward returns the rank's own slice) and rasterized, so each rank gets
+the gradients of its own compact rows (the counterpart of the JAX
+package's `micro_step_visible_batch`, one camera a rank).
 """
 
 from __future__ import annotations
@@ -18,12 +28,17 @@ from dataclasses import dataclass, field
 from typing import List, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from clm_gs_tpu_torch.models.gaussians import GaussianParams
 from clm_gs_tpu_torch.ops.projection import fully_fused_projection
-from clm_gs_tpu_torch.strategies.base import photometric_loss, render_one_cam
+from clm_gs_tpu_torch.parallel.shard import gather_table, rasterize_table, table_rows
+from clm_gs_tpu_torch.strategies.base import (photometric_loss, rasterize_inputs,
+                                              render_one_cam)
 
 GPU_FIELDS = ("xyz", "opacity", "log_scale", "quat")
+# the camera-order TSP samples every SAMPLE_STRIDE-th row
+SAMPLE_STRIDE = 32
 
 
 class Filters(NamedTuple):
@@ -35,9 +50,12 @@ class Filters(NamedTuple):
 @torch.no_grad()
 def calculate_filters(xyz, quat, log_scale, alive, viewmats, Ks, width: int,
                       height: int, radius_clip: float,
-                      sample_stride: int = 32) -> Filters:
+                      sample_stride: int = SAMPLE_STRIDE, sample_phase: int = 0) -> Filters:
     """Each camera's visible rows by projection alone (no SH needed), one
-    camera at a time so that only one camera's (C,) intermediates live."""
+    camera at a time so that only one camera's (C,) intermediates live. The
+    TSP sample takes rows sample_phase, sample_phase + sample_stride, ...
+    (on a gauss shard: the rows whose global id is a multiple of the
+    stride)."""
     scales = torch.exp(log_scale)
     ids, samples = [], []
     for b in range(viewmats.shape[0]):
@@ -46,7 +64,7 @@ def calculate_filters(xyz, quat, log_scale, alive, viewmats, Ks, width: int,
                                       radius_clip=radius_clip, alive=alive)
         vis = proj.radii[0] > 0
         ids.append(torch.nonzero(vis).flatten().to(torch.int32))
-        samples.append(vis[::sample_stride])
+        samples.append(vis[sample_phase::sample_stride])
     counts = torch.tensor([len(i) for i in ids], dtype=torch.int64)
     return Filters(ids, counts, torch.stack(samples))
 
@@ -59,6 +77,21 @@ def hamming_distance_matrix(sample) -> torch.Tensor:
     inter = s @ s.T
     ones = s.sum(1)
     return (ones[:, None] + ones[None, :] - 2.0 * inter).to(torch.int32)
+
+
+def order_inputs(F: Filters, mesh=None):
+    """(dist (B, B) int32, counts (B,) int64), on the host, for the camera
+    order: the Hamming matrix of the filters' sample and the visible counts;
+    on a mesh, summed over the gauss group in one all_reduce (the whole
+    scene's, as each shard samples its part of the global sample)."""
+    d = hamming_distance_matrix(F.sample)
+    if mesh is None or mesh.n_gauss == 1:
+        return d.cpu(), F.counts
+    B = d.shape[0]
+    both = torch.cat([d.flatten(), F.counts.to(d.device, torch.int32)])
+    dist.all_reduce(both, group=mesh.gauss_group)
+    both = both.cpu()
+    return both[:B * B].view(B, B), both[B * B:].long()
 
 
 class MicroOut(NamedTuple):
@@ -74,26 +107,42 @@ def _compact(params: GaussianParams, ids, shc) -> GaussianParams:
     return GaussianParams(*(getattr(params, f)[idx] for f in GPU_FIELDS), shc)
 
 
+def _render(compact: GaussianParams, viewmat, Kmat, campos, sh_degree: int,
+            width: int, height: int, background, mesh=None):
+    """`render_one_cam` of a compact set, or on a mesh of the gauss group's
+    compact sets gathered into one table. Returns (image, this rank's
+    means2d and radii, n_isects)."""
+    if mesh is None:
+        out = render_one_cam(compact, None, viewmat, Kmat, campos, sh_degree, width,
+                             height, background)
+        return out.image, out.means2d, out.radii, out.n_isects
+    means2d, conics, colors, opac, depths, radii = rasterize_inputs(
+        compact, None, viewmat, Kmat, campos, sh_degree, width, height)
+    table, _ = gather_table(mesh, table_rows(means2d, conics, colors, opac, depths, radii))
+    image, _, n_isects = rasterize_table(table, width, height, background)
+    return image, means2d, radii, n_isects
+
+
 def micro_step_visible(params: GaussianParams, ids, shc, viewmat, Kmat, campos,
                        gt, sh_degree: int, background, width: int, height: int,
-                       lambda_dssim: float = 0.2,
-                       loss_scale: float = 1.0) -> MicroOut:
+                       lambda_dssim: float = 0.2, loss_scale: float = 1.0,
+                       mesh=None) -> MicroOut:
     """One camera's forward and backward over its compact visible set: the
     11 card-resident attributes gathered at `ids`, the SH rows `shc`
-    (n, 48) of the working set."""
+    (n, 48) of the working set (on a mesh: the rank's, module docstring)."""
     leaf = GaussianParams(*(t.detach().requires_grad_(True)
                             for t in _compact(params, ids, shc).astuple()))
-    out = render_one_cam(leaf, None, viewmat, Kmat, campos, sh_degree, width,
-                         height, background)
-    out.means2d.retain_grad()
-    loss = photometric_loss(out.image, gt, lambda_dssim, loss_scale)
+    image, means2d, radii, n_isects = _render(leaf, viewmat, Kmat, campos, sh_degree,
+                                              width, height, background, mesh)
+    means2d.retain_grad()
+    loss = photometric_loss(image, gt, lambda_dssim, loss_scale)
     loss.backward()
     grads = GaussianParams(*(t.grad if t.grad is not None else torch.zeros_like(t)
                              for t in leaf.astuple()))
-    probe = out.means2d.grad
+    probe = means2d.grad
     if probe is None:
-        probe = torch.zeros_like(out.means2d)
-    return MicroOut(loss.detach(), grads, probe, out.radii, out.n_isects)
+        probe = torch.zeros_like(means2d)
+    return MicroOut(loss.detach(), grads, probe, radii, n_isects)
 
 
 @dataclass
@@ -138,14 +187,14 @@ def scatter_stats(xyz_grad_accum, denom, ids, probe_grad, radii, width: int,
 def clm_fused_step(params: GaussianParams, shc, grad_buf, ids, viewmat, Kmat,
                    campos, gt, acc: ClmAcc, sh_degree: int, background,
                    width: int, height: int, lambda_dssim: float = 0.2,
-                   loss_scale: float = 1.0):
+                   loss_scale: float = 1.0, mesh=None):
     """One clm camera: the micro step, then every accumulation of the batch
     in place (the four attribute gradients, the densification statistics,
     the visibility union and the instance counts). Returns (loss,
     grad_buf + the camera's compact SH gradients)."""
     out = micro_step_visible(params, ids, shc, viewmat, Kmat, campos, gt,
                              sh_degree, background, width, height, lambda_dssim,
-                             loss_scale)
+                             loss_scale, mesh)
     idx = ids.long()
     for f in GPU_FIELDS:
         getattr(acc, "g_" + f).index_add_(0, idx, getattr(out.grads, f))
@@ -158,9 +207,9 @@ def clm_fused_step(params: GaussianParams, shc, grad_buf, ids, viewmat, Kmat,
 
 @torch.no_grad()
 def eval_visible(params: GaussianParams, ids, shc, viewmat, Kmat, campos,
-                 sh_degree: int, background, width: int, height: int):
-    """Eval render of one camera from its compact visible set; returns
-    (image, n_isects)."""
-    out = render_one_cam(_compact(params, ids, shc), None, viewmat, Kmat, campos,
-                         sh_degree, width, height, background)
-    return out.image, out.n_isects
+                 sh_degree: int, background, width: int, height: int, mesh=None):
+    """Eval render of one camera from its compact visible set (on a mesh,
+    the gauss group's); returns (image, n_isects)."""
+    image, _, _, n_isects = _render(_compact(params, ids, shc), viewmat, Kmat, campos,
+                                    sh_degree, width, height, background, mesh)
+    return image, n_isects

@@ -22,14 +22,20 @@ camera's true count, so the JAX package's `isect_cap`/`vis_cap`/`gather_cap`
 adaptation has no counterpart here.
 
 On several cards, one process each (`parallel/multihost.py`: torchrun or the
---dist_* flags), --no_offload trains on the (data x gauss) mesh of
---mesh_shape through `parallel/shard.py`'s step, each rank holding
-C/n_gauss rows of the state and moments; densification, eval, PLY saves and
-checkpoints gather the whole state onto every rank, and rank 0 alone writes
-the run's files. Checkpoints keep the single-device layout. As in the JAX
-package, --naive_offload, or a data axis that does not divide bsz, runs the
-single-device step on every rank (and says so); --clm_offload on more than
-one process is not ported yet.
+--dist_* flags), --no_offload and --clm_offload train on the (data x gauss)
+mesh of --mesh_shape, each rank holding C/n_gauss rows of the state and
+moments: no_offload through `parallel/shard.py`'s step, clm_offload through
+its own batch on a context cut to the rank's gauss shard (its host SH rows
+and moments too; `clm_offload.shard_context`), with n_data camera chains
+where the data axis divides bsz. Densification, PLY saves and checkpoints
+gather the whole state (and clm's host rows) onto every rank, and rank 0
+alone writes the run's files; eval renders on the whole state on rank 0,
+or under clm on every rank through the mesh, its SH rows never leaving
+their rank. Checkpoints keep the single-device layout. As in the JAX
+package, --naive_offload, or under no_offload a data axis that does not
+divide bsz, runs the single-device step on every rank (and says so); under
+clm such a data axis keeps the gauss sharding and runs one chain, the whole
+tour, on every data rank.
 
 `training` and `main` run on the card unless called with device="cpu".
 """
@@ -140,10 +146,6 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
     naive = strategy_name == "naive_offload"
     clm = strategy_name == "clm_offload"
     world = dist.get_world_size() if dist.is_initialized() else 1
-    if clm and world > 1:
-        raise NotImplementedError(
-            f"--clm_offload on {world} processes is not ported yet (ROADMAP.md "
-            "§1: clm x mesh); run it on one process")
     # the decoded image cache is written by rank 0 and then read by all
     with rank0_first():
         scene = Scene(cfg, logger, device=device, writer=writer)
@@ -185,14 +187,23 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
     lr_scale = lr_batch_scale(bsz, cfg.opt.lr_scale_mode)
     adam_cfg = AdamConfig().scaled(bsz, cfg.opt.lr_scale_mode)
 
-    # the (data x gauss) mesh: no_offload's state and moments sharded along
-    # capacity, cameras along the batch
+    # the (data x gauss) mesh: the state and moments sharded along capacity,
+    # cameras along the batch (clm: its host rows too, below)
     mesh = sharded_step = None
     if dist.is_initialized() and cfg.tpu.shard_gaussians:
         if naive:
             logger.write("naive_offload does not support multi-chip sharding; "
                          "running single-device\n")
-        elif not clm:
+        elif clm:
+            mesh = M.make_mesh(cfg.tpu.mesh_shape, device)
+            logger.write(f"multi-chip mesh (clm gauss sharding): {mesh.shape}\n")
+            if bsz % mesh.n_data:
+                logger.write(f"mesh data axis {mesh.n_data} does not divide bsz {bsz}; "
+                             "clm runs one camera chain, the whole tour, on every "
+                             "data rank\n")
+            elif mesh.n_data > 1:
+                logger.write(f"clm data-parallel: {mesh.n_data} camera chains\n")
+        else:
             n_data, _ = M.mesh_dims(cfg.tpu.mesh_shape, world)
             if bsz % n_data:
                 logger.write(f"mesh data axis {n_data} does not divide bsz {bsz}; "
@@ -251,6 +262,10 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
             opt_state = init_adam(state.params)
         scene.host_sh = None  # the context owns the host rows
         closing.callback(strategy_ctx.close)
+        if mesh is not None:
+            opt_state = M.shard_capacity_tree(opt_state, mesh, state.capacity)
+            state = M.shard_state(state, mesh)
+            strategy.shard_context(strategy_ctx, mesh)
         if cfg.tpu.pinned_host:
             how = ("csrc/pinned_gather.cu" if device.type == "cuda"
                    else "its plain version on the CPU")
@@ -300,7 +315,7 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
         """The state with its parameters on the device (naive_offload and
         clm_offload: uploaded from the host copy; a mesh: gathered)."""
         if naive or clm:
-            return strategy.materialize(state, strategy_ctx)
+            return strategy.materialize(whole(state, None)[0], strategy_ctx)
         return whole(state, None)[0]
 
     check_frozen = cfg.debug.stop_update_param and cfg.debug.stop_update_param_assert
@@ -376,6 +391,10 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
             logger.write(f"clm overlap: host work {work * 1e3:.1f} ms/batch, "
                          f"trailing {trail * 1e3:.1f} ms/batch, "
                          f"comm-hidden {hidden * 100:.0f}%\n")
+            if strategy_ctx.data_sum_bytes:
+                logger.write(
+                    f"clm data sum: {strategy_ctx.data_sum_s / nb * 1e3:.1f} ms/batch, "
+                    f"{strategy_ctx.data_sum_bytes / nb / 2**20:.1f} MB/batch\n")
 
         # ---- eval ----
         if any(check_update_at_this_iter(iteration, bsz, ti, 0) or iteration == ti
@@ -383,12 +402,14 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
             e2e.pause(sync=out.losses)
             timers.start("eval")
             # naive_offload: one upload for the whole eval, freed after it;
-            # clm_offload: each camera gathers its visible SH rows; a mesh:
-            # every rank gathers the state, rank 0 evaluates
+            # clm_offload: each camera gathers its visible SH rows (on a
+            # mesh every rank renders each camera through the mesh); a
+            # no_offload mesh: every rank gathers the state, rank 0 evaluates
             eval_state = (state, strategy_ctx) if clm else full_state()
-            if writer:
+            if writer or (clm and mesh is not None):
                 training_report(cfg, scene, eval_state, sh_degree, background,
-                                iteration, logger, device, strategy)
+                                iteration, logger, device, strategy,
+                                save_images=writer)
             del eval_state
             timers.stop("eval")
             e2e.start()
@@ -413,8 +434,14 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
                                  "densification; it is a debugging flag")
             if will_densify:
                 # a mesh: every rank densifies the whole state alike (one
-                # generator state), then takes its rows again
-                state, opt_state = whole(state, opt_state)
+                # generator state), then takes its rows again (clm: its
+                # host rows and moments too)
+                if mesh is not None:
+                    timers.start("mesh.gather")
+                    state, opt_state = whole(state, opt_state)
+                    if clm:
+                        strategy.unshard_context(strategy_ctx, timers)
+                    timers.stop("mesh.gather", sync=state.params.xyz)
                 timers.start("count_densify")
                 n_new = Dn.count_densify(state, cfg.opt.densify_grad_threshold,
                                          cfg.opt.percent_dense, spatial)
@@ -445,6 +472,8 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
                 if mesh is not None:
                     opt_state = M.shard_capacity_tree(opt_state, mesh, state.capacity)
                     state = M.shard_state(state, mesh)
+                    if clm:
+                        strategy.shard_context(strategy_ctx, mesh, timers)
                 timers.stop("densify", sync=state.params.xyz)
                 timers.start("log")
                 logger.densify_report(iteration, iteration + bsz, info.n_alive,
@@ -466,8 +495,10 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
         if save_hits and not cfg.debug.do_not_save:
             e2e.pause(sync=out.losses)
             timers.start("save")
-            # clm_offload: the host SH buffer itself, never the card
-            scene.gaussians = (strategy.materialize_host(state, strategy_ctx)
+            # clm_offload: the host SH buffer itself, never the card (a
+            # mesh: the whole state and the gathered host rows)
+            scene.gaussians = (strategy.materialize_host(whole(state, None)[0],
+                                                         strategy_ctx)
                                if clm else full_state())
             if writer:
                 scene.save(save_hits[-1], logger)
@@ -488,12 +519,12 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
                 # host SH rows and moments beside them; a mesh: every row,
                 # the single-device layout
                 ck_state, ck_opt = whole(state, opt_state)
+            # every rank takes part in a mesh's gathers; rank 0 writes
+            extra = strategy.checkpoint_extra(strategy_ctx) if naive or clm else None
             if writer:
-                save_checkpoint(
-                    cfg.model.model_path, iteration + bsz, ck_state, ck_opt, generator,
-                    strategy_extra=strategy.checkpoint_extra(strategy_ctx)
-                    if naive or clm else None)
-            del ck_state, ck_opt
+                save_checkpoint(cfg.model.model_path, iteration + bsz, ck_state, ck_opt,
+                                generator, strategy_extra=extra)
+            del ck_state, ck_opt, extra
             timers.stop("checkpoint")
             logger.write(f"[ITER {iteration}] Saving Checkpoint\n")
             e2e.start()
@@ -511,7 +542,7 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
     if timers.enabled:
         logger.write(timers.report() + "\n")
     if naive or clm:
-        return full_state(), opt_state
+        return full_state(), whole(state, opt_state)[1]
     return whole(state, opt_state)
 
 
@@ -534,10 +565,12 @@ def _stop_profiler(prof, cfg, logger):
 
 @torch.no_grad()
 def training_report(cfg, scene, state, sh_degree, background, iteration, logger,
-                    device, strategy=no_offload):
+                    device, strategy=no_offload, save_images=True):
     """Eval: mean L1 and PSNR over the test cameras and a train subset,
     through `strategy`'s eval renders (`state` is what they take). A
-    strategy without `eval_batch` (clm_offload) renders each camera alone."""
+    strategy without `eval_batch` (clm_offload) renders each camera alone.
+    `save_images`: write the first --num_save_images_during_eval renders
+    (off on a rank that writes no files)."""
     W, H = scene.width, scene.height
     # --eval_res_cap: render and compare at an integer-downsampled resolution
     res_f = 1
@@ -588,7 +621,8 @@ def training_report(cfg, scene, state, sh_degree, background, iteration, logger,
                 l1s.append(float(torch.mean(torch.abs(img - gtj))))
                 psnrs.append(float(psnr_fn(torch.clamp(img, 0, 1), gtj)))
                 if saved < cfg.aux.num_save_images_during_eval:
-                    _save_eval_image(cfg, iteration, name, cam, img, gtj)
+                    if save_images:
+                        _save_eval_image(cfg, iteration, name, cam, img, gtj)
                     saved += 1
             else:
                 pend_vm.append(cb.viewmats[0])

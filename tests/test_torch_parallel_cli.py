@@ -5,9 +5,10 @@ the torchrun variables and destroying it at its end.
 
 One synthetic COLMAP scene (utils/synthetic_colmap.make_dataset); the
 reference is the port's own single-process run of the same arguments, which
-densifies and grows its capacity (130 -> 65536) inside the run. Rank 0
-alone writes the run's files; checkpoints keep the single-device layout, so
-a mesh checkpoint resumes on one process and the other way round.
+densifies and grows its capacity (130 -> 65536) inside the run, under
+--no_offload and under --clm_offload. Rank 0 alone writes the run's files;
+checkpoints keep the single-device layout, so a mesh checkpoint resumes on
+one process and the other way round.
 """
 
 import json
@@ -45,6 +46,11 @@ def _flags(mesh_shape):
             "--dist_process_id", "{rank}"]
 
 
+CLM = "--clm_offload"
+CLM_RUNS = ("clm_single", "clm", "clm_data2", "clm_resume_on_mesh", "clm_bsz3",
+            "clm_resume_single", "clm_resume_ref")
+
+
 def _torchrun_env():
     return {"RANK": "{rank}", "LOCAL_RANK": "{rank}", "WORLD_SIZE": "2",
             "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(workers.free_port())}
@@ -54,17 +60,21 @@ def _torchrun_env():
 def runs(tmp_path_factory):
     """The single-process run; then, in two processes, the same run on a 1x2
     mesh, a 1x2 resume of the single run's checkpoint (torchrun variables),
-    the same run on a 2x1 mesh, bsz 3 on a 2x1 mesh, --naive_offload and
-    --clm_offload; then one process resuming the 1x2 run's checkpoint, and
+    the same run on a 2x1 mesh, bsz 3 on a 2x1 mesh, --naive_offload; the
+    same four under --clm_offload (the 1x2 resume from the single clm run's
+    checkpoint); then one process resuming the 1x2 run's checkpoint, and
     one resuming the single run's (a resumed run's loader starts a new
-    epoch, so the resumes are compared with each other)."""
+    epoch, so the resumes are compared with each other), each again under
+    --clm_offload."""
     root = tmp_path_factory.mktemp("mesh_cli")
     out = {k: str(root / k) for k in ("scene", "single", "mesh", "resume_on_mesh",
-                                      "data2", "bsz3", "naive", "clm", "resume_single",
-                                      "resume_ref")}
+                                      "data2", "bsz3", "naive", "resume_single",
+                                      "resume_ref", *CLM_RUNS)}
     scene = make_dataset(out["scene"], device="cpu")
     single = tmain(_argv(scene, out["single"]), device="cpu")
+    clm_single = tmain(_argv(scene, out["clm_single"], strategy=CLM), device="cpu")
     ckpt = os.path.join(out["single"], "checkpoints", "9")
+    clm_ckpt = os.path.join(out["clm_single"], "checkpoints", "9")
     runs = [
         (_argv(scene, out["mesh"], extra=_flags("1x2")), {}),
         (_argv(scene, out["resume_on_mesh"], extra=["--start_checkpoint", ckpt,
@@ -74,16 +84,28 @@ def runs(tmp_path_factory):
         (_argv(scene, out["bsz3"], iters=6, extra=_flags("2x1") + ["--bsz", "3"]), {}),
         (_argv(scene, out["naive"], iters=8, extra=_flags("1x2"),
                strategy="--naive_offload"), {}),
-        (_argv(scene, out["clm"], iters=8, extra=_flags("1x2"),
-               strategy="--clm_offload"), {}),
+        (_argv(scene, out["clm"], extra=_flags("1x2"), strategy=CLM), {}),
+        (_argv(scene, out["clm_data2"], extra=_flags("2x1"), strategy=CLM), {}),
+        (_argv(scene, out["clm_resume_on_mesh"], strategy=CLM, extra=[
+            "--start_checkpoint", clm_ckpt, "--mesh_shape", "1x2"]), _torchrun_env()),
+        (_argv(scene, out["clm_bsz3"], iters=6, strategy=CLM,
+               extra=_flags("2x1") + ["--bsz", "3"]), {}),
     ]
     ranks = workers.launch(workers.cli_runs, 2, runs, timeout=300)
-    names = ("mesh", "resume_on_mesh", "data2", "bsz3", "naive", "clm")
+    names = ("mesh", "resume_on_mesh", "data2", "bsz3", "naive", "clm", "clm_data2",
+             "clm_resume_on_mesh", "clm_bsz3")
     per_run = {name: [r[i] for r in ranks] for i, name in enumerate(names)}
     resumed = tmain(_argv(scene, out["resume_single"], extra=[
         "--start_checkpoint", os.path.join(out["mesh"], "checkpoints", "9")]),
         device="cpu")
     tmain(_argv(scene, out["resume_ref"], extra=["--start_checkpoint", ckpt]), device="cpu")
+    per_run["clm_resume_single"] = tmain(_argv(scene, out["clm_resume_single"], strategy=CLM,
+                                               extra=["--start_checkpoint", os.path.join(
+                                                   out["clm"], "checkpoints", "9")]),
+                                         device="cpu")
+    tmain(_argv(scene, out["clm_resume_ref"], strategy=CLM,
+                extra=["--start_checkpoint", clm_ckpt]), device="cpu")
+    per_run["clm_single"] = clm_single
     return out, single, per_run, resumed
 
 
@@ -201,11 +223,98 @@ def test_single_device_fallbacks_say_so(runs, run, line):
     assert a == b and not a["group_left"]
 
 
-def test_clm_offload_on_a_mesh_raises(runs):
+@pytest.mark.parametrize("run", ["clm", "clm_data2"])
+def test_clm_mesh_run_matches_the_single_process_run(runs, run):
+    """--clm_offload on a 1x2 mesh (the host SH rows split between the two
+    ranks) and a 2x1 mesh (two camera chains, the host rows on both) against
+    the single-process clm run: losses within 2e-6, the same growth,
+    densification and final Gaussian count, eval PSNRs within 1e-4 dB; the
+    JAX package's clm mesh lines; the process group gone on both ranks."""
     out, _, per_run, _ = runs
-    for r in per_run["clm"]:
-        assert r["raised"] == "NotImplementedError" and "ROADMAP.md" in r["message"]
+    state, _ = per_run["clm_single"]
+    log, ref = _log(out[run]), _log(out["clm_single"])
+    shape = {"clm": "{'data': 1, 'gauss': 2}", "clm_data2": "{'data': 2, 'gauss': 1}"}[run]
+    assert f"multi-chip mesh (clm gauss sharding): {shape}" in log
+    assert ("clm data-parallel: 2 camera chains" in log) == (run == "clm_data2")
+    assert ("clm data sum:" in log) == (run == "clm_data2")
+    assert "clm overlap:" in log
+    assert "capacity 130 -> 65536" in log and "capacity 130 -> 65536" in ref
+    np.testing.assert_allclose(_losses(out[run]), _losses(out["clm_single"]), atol=2e-6)
+    assert len(_losses(out[run])) == 3
+    for r in per_run[run]:
+        assert (r["n_alive"], r["capacity"]) == (state.n_alive, state.capacity)
         assert not r["group_left"]
+    densify = [ln for ln in log.splitlines() if "densify_and_prune" in ln]
+    assert densify and [ln.split(". Max")[0] for ln in densify] == [
+        ln.split(". Max")[0] for ln in ref.splitlines() if "densify_and_prune" in ln]
+    te, re_ = _events(out[run], "eval"), _events(out["clm_single"], "eval")
+    assert te and [(e["iteration"], e["split"]) for e in te] == [
+        (e["iteration"], e["split"]) for e in re_]
+    np.testing.assert_allclose([e["psnr"] for e in te], [e["psnr"] for e in re_],
+                               atol=1e-4)
+
+
+def test_clm_mesh_writes_the_single_device_files_from_rank_0(runs):
+    """The 1x2 clm run: one writer (every log line once), the single clm
+    run's files, and checkpoints whose chkpnt.npz and strategy_extra.npz
+    (the host SH rows and moments of every row, gathered from both ranks)
+    have the single run's keys and shapes, with values within 1e-5 of each
+    array's largest."""
+    out, _, _, _ = runs
+    log = _log(out["clm"])
+    assert log.count("config: ") == 1 and log.count("end2end total_time:") == 1
+    assert log.count("multi-chip mesh (clm gauss sharding):") == 1
+    assert sorted(os.listdir(out["clm"])) == sorted(os.listdir(out["clm_single"]))
+    for it, cap in (("5", 130), ("9", 65536)):
+        for name in ("chkpnt.npz", "strategy_extra.npz"):
+            ck = _npz(os.path.join(out["clm"], "checkpoints", it, name))
+            ref = _npz(os.path.join(out["clm_single"], "checkpoints", it, name))
+            assert sorted(ck) == sorted(ref)
+            for k, want in ref.items():
+                assert ck[k].shape == want.shape and ck[k].dtype == want.dtype, k
+                scale = max(float(np.abs(want.astype(np.float64)).max()), 1e-30)
+                np.testing.assert_allclose(ck[k].astype(np.float64),
+                                           want.astype(np.float64), atol=1e-5 * scale,
+                                           err_msg=f"{it} {name} {k}")
+        sh = _npz(os.path.join(out["clm"], "checkpoints", it, "strategy_extra.npz"))
+        assert sh["clm.sh_host"].shape == (cap, 48)
+
+
+def test_clm_resumes_across_the_mesh_both_ways(runs):
+    """The 1x2 clm run's checkpoint after its growth resumed on one process,
+    and the single clm run's resumed on a 1x2 mesh (torchrun's variables):
+    both give the loss of the single run's checkpoint resumed on one
+    process, and the same model."""
+    out, _, per_run, _ = runs
+    state, _ = per_run["clm_single"]
+    ref = _losses(out["clm_resume_ref"])
+    assert len(ref) == 1
+    for run, mesh in (("clm_resume_single", False), ("clm_resume_on_mesh", True)):
+        log = _log(out[run])
+        assert "Resumed from" in log and "at iteration 9" in log
+        assert ("multi-chip mesh (clm gauss sharding): {'data': 1, 'gauss': 2}"
+                in log) == mesh
+        np.testing.assert_allclose(_losses(out[run]), ref, atol=2e-6)
+    resumed, _ = per_run["clm_resume_single"]
+    assert (resumed.n_alive, resumed.capacity) == (state.n_alive, state.capacity)
+    for r in per_run["clm_resume_on_mesh"]:
+        assert (r["n_alive"], r["capacity"]) == (state.n_alive, state.capacity)
+        assert not r["group_left"]
+
+
+def test_clm_data_axis_fallback_says_so(runs):
+    """bsz 3 on a 2x1 mesh under --clm_offload: the gauss sharding kept, one
+    camera chain (the whole tour) on every data rank, as the JAX package
+    runs it, and the log says so; both ranks train the same model."""
+    out, _, per_run, _ = runs
+    log = _log(out["clm_bsz3"])
+    assert "multi-chip mesh (clm gauss sharding): {'data': 2, 'gauss': 1}" in log
+    assert ("mesh data axis 2 does not divide bsz 3; clm runs one camera chain, "
+            "the whole tour, on every data rank") in log
+    assert "clm data-parallel" not in log and "clm data sum:" not in log
+    assert "end2end total_time:" in log and np.isfinite(_losses(out["clm_bsz3"])).all()
+    a, b = per_run["clm_bsz3"]
+    assert a == b and not a["group_left"]
 
 
 def test_a_group_of_one_trains_on_a_1x1_mesh(runs, tmp_path):
@@ -224,3 +333,41 @@ def test_a_group_of_one_trains_on_a_1x1_mesh(runs, tmp_path):
     np.testing.assert_allclose(_losses(mesh), _losses(out["single"]), atol=2e-6)
     assert (got.n_alive, got.capacity) == (state.n_alive, state.capacity)
 
+
+
+def test_a_group_of_one_trains_clm_on_a_1x1_mesh(runs, tmp_path):
+    """--clm_offload with the --dist_* flags and one process (as chip_smoke.py's
+    clm_mesh phase runs it on one card): the context cut to a 1x1 mesh, in
+    this process, gives the single clm run's losses and model, and the group
+    is gone after."""
+    import torch.distributed as dist
+
+    out, _, per_run, _ = runs
+    state, _ = per_run["clm_single"]
+    mesh = str(tmp_path / "clm1x1")
+    got, _ = tmain(_argv(out["scene"], mesh, strategy=CLM, extra=[
+        "--mesh_shape", "1x1", "--dist_coordinator", f"127.0.0.1:{workers.free_port()}",
+        "--dist_num_processes", "1", "--dist_process_id", "0"]), device="cpu")
+    assert not dist.is_initialized()
+    assert "multi-chip mesh (clm gauss sharding): {'data': 1, 'gauss': 1}" in _log(mesh)
+    np.testing.assert_allclose(_losses(mesh), _losses(out["clm_single"]), atol=2e-6)
+    assert (got.n_alive, got.capacity) == (state.n_alive, state.capacity)
+    np.testing.assert_array_equal(got.params.sh.numpy(), state.params.sh.numpy())
+
+
+def test_mesh_cli_reads_a_clm_mesh_log(runs):
+    """utils/mesh_cli.py's reading of the 2x1 clm run's python.log: the mesh
+    lines, the data sum and overlap lines, it/s, the last test PSNR and the
+    final Gaussian count."""
+    from clm_gs_tpu_torch.utils.mesh_cli import parse_log
+
+    out, _, per_run, _ = runs
+    got = parse_log(_log(out["clm_data2"]))
+    assert got["mesh_lines"] == ["multi-chip mesh (clm gauss sharding): "
+                                 "{'data': 2, 'gauss': 1}",
+                                 "clm data-parallel: 2 camera chains"]
+    assert got["data_sum"].startswith("clm data sum: ") and got["overlap"]
+    assert got["it_per_s"] > 0 and got["spans_ms"] == {}
+    tests = [e for e in _events(out["clm_data2"], "eval") if e["split"] == "test"]
+    assert got["test_psnr"] == pytest.approx(tests[-1]["psnr"], abs=1e-9)
+    assert got["gaussians"] == per_run["clm_data2"][0]["n_alive"]
