@@ -125,8 +125,22 @@ Phases, one JSON line each:
      and why): every frame with structure, consecutive frames apart,
      the two runs' frames within one level, frame 0 of both as floats in
      this process within 1e-5 relative and 1e-6 absolute, frames/s, peak
-     device memory and the forward and fill launches of each run. The
-     kernels line follows it.
+     device memory and the forward and fill launches of each run.
+ 11. bigcity: the reference's BigCity regime at its 25M size
+     (clm_gs_tpu_torch/utils/bigcity.py, each step a process of its own):
+     `make` draws 25,000,000 city Gaussians, renders 64 cameras of 640x400
+     on the card and writes the degraded init PLY; `run` trains it with
+     BIGCITY_ARGS (bsz 64, --sparse_adam, no densification) for 256
+     iterations under --clm_offload, a test eval at its end, then times
+     one batch of the final state in situ against
+     clm_offload.prepare_device_loop's replay (the card's share), and
+     under --no_offload. Gates: finite losses, clm's test PSNR above the
+     init's and within 0.5 dB of no_offload's, clm's peak device memory
+     below no_offload's, the host state 768 bytes a row, the load's host
+     peak within the host state plus 2 GiB, the replay's last loss equal to
+     the in-situ batch's to the bit, every kernel launched; then each
+     kernel against its plain version on the first training camera's
+     visible rows. The summary and kernels lines follow it.
 Any failed check exits 1. The last line is the device summary. Without CUDA,
 or without the package beside it, the script exits 1 and prints no result.
 """
@@ -136,6 +150,7 @@ from __future__ import annotations
 import argparse
 import csv
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -221,6 +236,9 @@ TOL = {
     # the mesh CLI run's final test PSNR against the cli run's (dB); the clm
     # mesh CLI run's against the clm run's
     "mesh_psnr_db": 0.1,
+    # the bigcity phase's clm run against its no_offload run: final test
+    # PSNR (dB)
+    "bigcity_psnr_db": 0.5,
     # clm_offload's batch on a mesh against the single-process batch, both on
     # the card from the same seeded moments (the rows reach the rasterizer
     # through the gauss gather; with two chains the finish sets are summed
@@ -389,6 +407,11 @@ def run(torch, report):
         torch.cuda.empty_cache()
         report["trajectory"] = trajectory_run(torch, work, colmap)
         emit(report["trajectory"])
+    torch.cuda.empty_cache()
+
+    # 11. the BigCity regime on one card
+    report["bigcity"] = bigcity_run(torch)
+    emit(report["bigcity"])
 
     emit(summary(report))
     launches = report["full"]["launches"]
@@ -410,7 +433,9 @@ def run(torch, report):
                     report["clm_mesh_step"]["pinned_launches"].get(k, 0),
                 "clm_mesh_launches": report["clm_mesh"]["launches"].get(k, 0),
                 "trajectory_launches": {f: r["launches"].get(k, 0) for f, r in
-                                        report["trajectory"]["runs"].items()}}
+                                        report["trajectory"]["runs"].items()},
+                "bigcity_launches": {f: r.get(k, 0) for f, r in
+                                     report["bigcity"]["launches"].items()}}
 
     g = report["clm_step"]["pinned_gather"]
     emit({"kernels": [
@@ -470,7 +495,16 @@ def summary(report):
             for shape, rs in report["clm_mesh_step"]["ranks"].items()},
         "clm_mesh": {k: report["clm_mesh"][k] for k in (
             "it_per_s", "clm_it_per_s", "final_test_psnr_minus_clm",
-            "densify_gather_ms_calls", "host_gather_bytes", "peak_device_bytes")}}
+            "densify_gather_ms_calls", "host_gather_bytes", "peak_device_bytes")},
+        "bigcity": {k: report["bigcity"][k] for k in (
+            "n", "capacity", "it_per_s", "s_per_batch", "init_test_psnr",
+            "final_test_psnr", "peak_device_bytes", "sampled_peak_rss_bytes",
+            "clm_host_state_bytes", "rss_before_bytes", "load_rss_over_host_state_bytes",
+            "clm_spans_ms_per_call", "clm_overlap")} | {
+            "device_loop": {k: report["bigcity"]["device_loop"][k] for k in (
+                "replay_median_s", "batch_s", "card_share_of_batch",
+                "replay_equal_to_in_situ", "batch_h2d_bytes", "batch_d2h_bytes",
+                "batch_trailing_s", "unique_cameras")}}}
 
 
 def _bound(bytes_, flops):
@@ -2569,6 +2603,157 @@ def trajectory_run(torch, work, scene):
     check(png_diff is not None and png_diff <= 1,
           f"trajectory: frames of the two strategies differ by {png_diff} levels")
     check(close, f"trajectory: frame 0 differs by {err.max().item()} between strategies")
+    return result
+
+
+# The bigcity phase: the reference's BigCity-25M size (SURVEY.md:525), 64
+# cameras of 640x400, BIGCITY_ARGS for 4 batches of 64
+BIGCITY_N = 25_000_000
+BIGCITY_ITERS = 256
+# each run's extra flags: the spans, and no final PLY (a save gathers the
+# whole model on the host)
+BIGCITY_EXTRA = ["--enable_timer", "--do_not_save"]
+# the load's host peak over the host buffers it builds (the streaming loader
+# holds one chunk of rows beside them)
+BIGCITY_LOAD_SLACK = 2 * 2**30
+
+
+def _bigcity_cli(root, args, timeout):
+    """`python -m clm_gs_tpu_torch.utils.bigcity ARGS`: its JSON line and
+    its seconds; a failure is a failed check."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "clm_gs_tpu_torch.utils.bigcity", *args],
+                         cwd=root, capture_output=True, text=True, check=False,
+                         timeout=timeout)
+    s = time.perf_counter() - t0
+    if res.returncode != 0:
+        print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
+    check(res.returncode == 0, f"bigcity {args[0]}: rc {res.returncode}")
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+    return json.loads(lines[-1]) | {"s": s}
+
+
+def _bigcity_kernels(torch, scene, cap):
+    """Each kernel against its plain version at the shapes the clm path gives
+    it: the visible rows of the first training camera, loaded from the init
+    PLY, against its ground truth."""
+    from clm_gs_tpu_torch.models import gaussians as G
+    from clm_gs_tpu_torch.strategies import offload_common as oc
+    from clm_gs_tpu_torch.utils.bigcity import INIT_PLY, _batch
+
+    state = G.load_ply(f"{scene}/{INIT_PLY}", capacity=cap, device="cuda")
+    cb, gt, names = _batch(scene, 1, 8, "cuda")
+    p = state.params
+    F = oc.calculate_filters(p.xyz, p.quat, p.log_scale, state.alive, cb.viewmats,
+                             cb.Ks, cb.width, cb.height, 0.0)
+    idx = F.ids[0].long()
+    k = len(idx)
+    compact = G.GaussianParams(*(t[idx] for t in p.astuple()))
+    z = torch.zeros(k, device="cuda")
+    cstate = G.GaussianState(params=compact, alive=torch.ones(k, dtype=torch.bool,
+                                                            device="cuda"),
+                             n_alive=k, xyz_grad_accum=z, denom=z, max_radii2d=z)
+    del state, p
+    out = kernel_checks(torch, scene=(cstate, cb, gt, torch.zeros(3, device="cuda")),
+                        timed=False)
+    out["shape"]["camera"] = names[0]
+    return out
+
+
+def bigcity_run(torch):
+    """The BigCity regime at BIGCITY_N Gaussians: `bigcity make`, then
+    `bigcity run` under --clm_offload with --device_loop and under
+    --no_offload (each a process of its own, so that its peak RSS is its
+    own), then each kernel against its plain version at the clm path's
+    shapes. Gates: finite losses; clm's final test PSNR above the degraded
+    init's and within BIGCITY_PSNR_DB of no_offload's; clm's peak device
+    memory below no_offload's; the clm host state 768 bytes a row of the
+    capacity; the load's host peak (the run's RSS sampled through its
+    set-up less its RSS before the run) within the host state plus
+    BIGCITY_LOAD_SLACK; the replay's last loss equal to the in-situ
+    batch's to the bit (the same forward kernels on the same rows in the
+    same order); every kernel of the path launched."""
+    from pathlib import Path
+
+    from clm_gs_tpu_torch.utils.bigcity import capacity_for
+
+    root = Path(__file__).resolve().parent
+    cap = capacity_for(BIGCITY_N)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bigcity_") as work:
+        scene = f"{work}/scene"
+        free = shutil.disk_usage(work).free
+        make = _bigcity_cli(root, ["make", scene, "--n", str(BIGCITY_N)], 900)
+        runs = {}
+        for name, flags in (("clm", ["--device_loop"]), ("no_offload", ["--no_offload"])):
+            runs[name] = _bigcity_cli(
+                root, ["run", scene, f"{work}/{name}", "--iters", str(BIGCITY_ITERS),
+                       *flags, "--", *BIGCITY_EXTRA], 900)
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        kernels = _bigcity_kernels(torch, scene, cap)
+        kernels["s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    clm, no = runs["clm"], runs["no_offload"]
+    loop = clm["device_loop"]
+    psnr = {k: [e["psnr"] for e in r["final_eval"] if e["split"] == "test"]
+            for k, r in runs.items()}
+    batches = BIGCITY_ITERS // 64
+    spans = {k: v[0] / v[1] for k, v in clm["spans_ms"].items() if k.startswith("clm.")}
+    result = {
+        "phase": "bigcity", "n": BIGCITY_N, "capacity": cap, "iterations": BIGCITY_ITERS,
+        "disk_free_bytes": free,
+        "make": {k: make[k] for k in ("s", "gaussians_s", "render_s", "ply_s",
+                                      "init_test_psnr", "gt_isects", "gt_launches")},
+        "init_test_psnr": make["init_test_psnr"], "final_test_psnr": psnr,
+        "it_per_s": {k: (r["end2end"] or {}).get("it_per_s") for k, r in runs.items()},
+        "s_per_batch": {k: (r["end2end"] or {}).get("total_s", float("nan")) / batches
+                        for k, r in runs.items()},
+        "losses": {k: [v["loss"] for v in r["losses"]] for k, r in runs.items()},
+        "peak_device_bytes": {k: r["peak_device_bytes"] for k, r in runs.items()},
+        "log_device_peak_gb": {k: r["device_peak_gb_max"] for k, r in runs.items()},
+        # RSS sampled through each run (the kernel's peak of a process that
+        # this large one starts begins at this one's: `peak_rss_bytes`)
+        "sampled_peak_rss_bytes": {k: r["sampled_peak_rss_bytes"] for k, r in runs.items()},
+        "setup_rss_bytes": {k: r["setup_rss_bytes"] for k, r in runs.items()},
+        "rss_before_bytes": {k: r["rss_before_bytes"] for k, r in runs.items()},
+        "peak_rss_bytes": {k: r["peak_rss_bytes"] for k, r in runs.items()},
+        "clm_host_state_bytes": clm["clm_host_state_bytes"],
+        # the load's host peak (the run's RSS sampled through its set-up,
+        # less its RSS before the run) over the host state
+        "load_rss_over_host_state_bytes": (clm["setup_rss_bytes"] - clm["rss_before_bytes"]
+                                           - clm["clm_host_state_bytes"]),
+        "clm_spans_ms_per_call": spans, "clm_overlap": clm["overlap_last"],
+        "run_s": {k: r["s"] for k, r in runs.items()},
+        "device_loop": loop,
+        "launches": {"make": make["gt_launches"], "clm": clm["launches"],
+                     "no_offload": no["launches"]},
+        "kernels": kernels,
+        "tol": {"psnr_db": TOL["bigcity_psnr_db"], "replay": "bit-equal",
+                "load_slack_bytes": BIGCITY_LOAD_SLACK},
+    }
+    finite = lambda xs: xs and all(v == v and abs(v) != float("inf") for v in xs)
+    for k, ls in result["losses"].items():
+        check(finite(ls), f"bigcity {k}: losses {ls}")
+    check(psnr["clm"] and psnr["no_offload"], f"bigcity: no test eval {psnr}")
+    check(psnr["clm"][-1] > make["init_test_psnr"],
+          f"bigcity: clm's test PSNR {psnr['clm']} not above the init's "
+          f"{make['init_test_psnr']}")
+    check(abs(psnr["clm"][-1] - psnr["no_offload"][-1]) <= TOL["bigcity_psnr_db"],
+          f"bigcity: test PSNR clm {psnr['clm']} against no_offload {psnr['no_offload']}")
+    check(clm["peak_device_bytes"] < no["peak_device_bytes"],
+          f"bigcity: clm's peak {clm['peak_device_bytes']} not below no_offload's "
+          f"{no['peak_device_bytes']}")
+    check(clm["capacity"] == cap and clm["clm_host_state_bytes"] == 768 * cap,
+          f"bigcity: host state {clm['clm_host_state_bytes']} at capacity {clm['capacity']}")
+    check(result["load_rss_over_host_state_bytes"] <= BIGCITY_LOAD_SLACK,
+          f"bigcity: the load's host peak {clm['setup_rss_bytes']} bytes (from "
+          f"{clm['rss_before_bytes']}) over the host state {clm['clm_host_state_bytes']}")
+    check(loop["replay_equal_to_in_situ"],
+          f"bigcity: replay losses {loop['replay_losses']} against the in-situ "
+          f"{loop['in_situ_last_loss']}")
+    for k in ("clm", "no_offload"):
+        check(all(runs[k]["launches"].get(name, 0) > 0 for name in KERNELS),
+              f"bigcity {k}: a kernel of the path never launched: {runs[k]['launches']}")
     return result
 
 

@@ -13,6 +13,8 @@ reference's layouts, so either package reads the other's files.
 With ``host_sh=True`` (clm_offload) the loaders return ``(state, sh_host)``:
 the (C, 48) SH block goes to a host buffer (pinned when the state is on the
 card) and never to the card, whose state carries a (1, 48) zero placeholder.
+A model PLY is read in chunks of rows, each written straight into the
+capacity buffers, so a loader's host peak is what it builds plus one chunk.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 from clm_gs_tpu_torch.ops.knn import knn_mean_sq_dist
 from clm_gs_tpu_torch.ops.sh import rgb_to_sh
 from clm_gs_tpu_torch.utils.general import check_device, next_capacity
+from clm_gs_tpu_torch.utils.hostmem import pinned_zeros
 
 PARAM_FIELDS = ("xyz", "opacity", "log_scale", "quat", "sh")
 
@@ -94,9 +97,11 @@ def empty_state(capacity: int, device="cuda") -> GaussianState:
 
 def host_zeros(rows: int, cols: int, device) -> torch.Tensor:
     """(rows, cols) float32 zeros on the host, pinned when `device` is a
-    card (the buffers a strategy keeps off the card and copies from)."""
-    return torch.zeros((rows, cols), dtype=torch.float32,
-                       pin_memory=check_device(device).type == "cuda")
+    card (the buffers a strategy keeps off the card and copies from), in
+    page-locked memory of exactly their size (`hostmem.pinned_zeros`)."""
+    if check_device(device).type == "cuda":
+        return pinned_zeros((rows, cols))
+    return torch.zeros((rows, cols), dtype=torch.float32)
 
 
 def _from_rows(rows: dict, n: int, capacity: Optional[int], device,
@@ -105,27 +110,39 @@ def _from_rows(rows: dict, n: int, capacity: Optional[int], device,
     log_scale, quat, sh), padded with zeros to `capacity` (next_capacity(n)
     when None); the statistics start at zero. With `host_sh`, returns
     (state with the SH placeholder, (capacity, 48) host SH rows)."""
+    return _from_chunks([(0, rows)], n, capacity, device, host_sh)
+
+
+def _from_chunks(chunks, n: int, capacity: Optional[int], device,
+                 host_sh: bool = False):
+    """`_from_rows` over an iterable of (first row, rows) chunks, each
+    written straight into the capacity buffers (the SH rows, with
+    `host_sh`, into the pinned host buffer): the host holds the buffers
+    built and one chunk."""
     device = check_device(device)
     if capacity is None:
         capacity = next_capacity(n)
     if capacity < n:
         raise ValueError(f"capacity {capacity} is below the {n} Gaussians to load")
-
-    def pad(x):
-        out = torch.zeros((capacity,) + x.shape[1:], dtype=torch.float32)
-        out[:n] = torch.from_numpy(np.ascontiguousarray(x, np.float32))
-        return out.to(device)
+    shapes = {"xyz": (3,), "opacity": (), "log_scale": (3,), "quat": (4,), "sh": (48,)}
+    bufs = {f: torch.zeros((capacity,) + shapes[f], dtype=torch.float32, device=device)
+            for f in PARAM_FIELDS if f != "sh" or not host_sh}
+    if host_sh:
+        bufs["sh"] = host_zeros(capacity, 48, device)
+    for i, rows in chunks:
+        for f, buf in bufs.items():
+            x = rows[f]
+            buf[i:i + len(x)].copy_(torch.from_numpy(np.ascontiguousarray(x, np.float32)))
+    sh_host = None
+    if host_sh:
+        sh_host = bufs.pop("sh")
+        bufs["sh"] = torch.zeros((1, 48), dtype=torch.float32, device=device)
 
     def z():
         return torch.zeros(capacity, dtype=torch.float32, device=device)
 
-    params = {f: pad(rows[f]) for f in PARAM_FIELDS if f != "sh" or not host_sh}
-    if host_sh:
-        sh_host = host_zeros(capacity, 48, device)
-        sh_host[:n] = torch.from_numpy(np.ascontiguousarray(rows["sh"], np.float32))
-        params["sh"] = torch.zeros((1, 48), dtype=torch.float32, device=device)
     state = GaussianState(
-        params=GaussianParams(**params),
+        params=GaussianParams(**bufs),
         alive=torch.arange(capacity, device=device) < n,
         n_alive=n, xyz_grad_accum=z(), denom=z(), max_radii2d=z(),
     )
@@ -239,28 +256,58 @@ def save_ply(state: GaussianState, path: str, chunk_rows: Optional[int] = None):
                   cols[i * chunk_rows:(i + 1) * chunk_rows])
 
 
-def load_ply(path: str, capacity: Optional[int] = None, device="cuda",
-             host_sh: bool = False):
-    """A model PLY of the 59-property schema; raises when `capacity` is
-    below its row count. With `host_sh`, returns (state, sh_host)."""
+def _model_ply_header(path: str):
+    """(row count, byte offset of the rows) of a model PLY of the
+    59-property schema; raises on another file."""
     with open(path, "rb") as f:
-        data = f.read()
-    end = data.index(b"end_header\n") + len(b"end_header\n")
+        lines = []
+        while not lines or lines[-1] != b"end_header\n":
+            line = f.readline()
+            if not line:
+                raise ValueError(f"{path}: no end_header")
+            lines.append(line)
+        end = f.tell()
     n, props = None, []
-    for line in data[:end].decode("ascii").splitlines():
+    for line in b"".join(lines).decode("ascii").splitlines():
         if line.startswith("element vertex"):
             n = int(line.split()[-1])
         elif line.startswith("property float"):
             props.append(line.split()[-1])
     if n is None or props != PLY_PROPS:
         raise ValueError(f"{path}: not a Gaussian model PLY of the expected schema")
-    cols = np.frombuffer(data[end:], dtype="<f4", count=n * len(props))
-    cols = cols.reshape(n, len(props))
-    rest = cols[:, 9:54].reshape(n, 3, 15).transpose(0, 2, 1).reshape(n, 45)
-    rows = {"xyz": cols[:, 0:3], "opacity": cols[:, 54],
-            "log_scale": cols[:, 55:58], "quat": cols[:, 58:62],
-            "sh": np.concatenate([cols[:, 6:9], rest], axis=1)}
-    return _from_rows(rows, n, capacity, device, host_sh)
+    return n, end
+
+
+def ply_row_chunks(path: str, chunk_rows: int = 1 << 20):
+    """(first row, rows) of a model PLY, `chunk_rows` rows at a time, read
+    into one reused buffer: rows holds xyz, opacity, log_scale, quat and sh
+    (f_dc then f_rest, the latter from the file's channel-major order to
+    (15, 3) row-major), views of that buffer valid until the next chunk."""
+    n, end = _model_ply_header(path)
+    ncol = len(PLY_PROPS)
+    buf = np.empty((min(chunk_rows, max(n, 1)), ncol), dtype="<f4")
+    with open(path, "rb") as f:
+        f.seek(end)
+        for i in range(0, n, chunk_rows):
+            m = min(chunk_rows, n - i)
+            cols = buf[:m]
+            if f.readinto(memoryview(cols).cast("B")) != cols.nbytes:
+                raise ValueError(f"{path}: fewer than the {n} rows its header states")
+            sh = np.empty((m, 48), np.float32)
+            sh[:, 0:3] = cols[:, 6:9]
+            sh[:, 3:] = cols[:, 9:54].reshape(m, 3, 15).transpose(0, 2, 1).reshape(m, 45)
+            yield i, {"xyz": cols[:, 0:3], "opacity": cols[:, 54],
+                      "log_scale": cols[:, 55:58], "quat": cols[:, 58:62], "sh": sh}
+
+
+def load_ply(path: str, capacity: Optional[int] = None, device="cuda",
+             host_sh: bool = False, chunk_rows: int = 1 << 20):
+    """A model PLY of the 59-property schema, streamed `chunk_rows` rows at
+    a time into the capacity buffers (`ply_row_chunks`); raises when
+    `capacity` is below its row count. With `host_sh`, returns (state,
+    sh_host)."""
+    n, _ = _model_ply_header(path)
+    return _from_chunks(ply_row_chunks(path, chunk_rows), n, capacity, device, host_sh)
 
 
 def resize_rows(state: GaussianState, coeff: float) -> GaussianState:

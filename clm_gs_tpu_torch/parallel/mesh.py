@@ -29,6 +29,7 @@ import torch
 import torch.distributed as dist
 
 from clm_gs_tpu_torch.models.gaussians import GaussianState
+from clm_gs_tpu_torch.utils.hostmem import pinned_zeros
 
 
 @dataclass(frozen=True)
@@ -132,8 +133,9 @@ def gather_capacity_tree(tree, mesh: Mesh, local_capacity: int):
 
 
 def host_copy(x: torch.Tensor, pin: bool) -> torch.Tensor:
-    """A contiguous copy of `x` on the host, page-locked when `pin`."""
-    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=pin)
+    """A contiguous copy of `x` on the host, page-locked when `pin`
+    (exactly its size, `hostmem.pinned_zeros`)."""
+    out = pinned_zeros(x.shape, x.dtype) if pin else torch.empty(x.shape, dtype=x.dtype)
     out.copy_(x)
     return out
 

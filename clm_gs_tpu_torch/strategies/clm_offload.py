@@ -74,6 +74,9 @@ group hold bit-identical copies of its host state. Per batch:
 
 Every collective is issued by the main thread, in the same order on every
 rank, on the compute stream; the host-Adam worker never calls one.
+
+`prepare_device_loop` splits the card's share of a batch from the host's: it
+stages a whole batch on the card and replays only the card's work.
 """
 
 from __future__ import annotations
@@ -218,7 +221,7 @@ def make_context_from_host(cfg, sh_host: torch.Tensor, adam_cfg: AdamConfig,
     with host_sh=True (pinned there when the run is on a card)."""
     device = torch.device(device)
     if device.type == "cuda" and not sh_host.is_pinned():
-        sh_host = sh_host.pin_memory()
+        sh_host = host_zeros(*sh_host.shape, device).copy_(sh_host)
     native._require(sh_host, "sh_host", (sh_host.shape[0], SH_COLS))
     return _context(sh_host, adam_cfg, device, cfg)
 
@@ -236,6 +239,13 @@ def shard_context(ctx: ClmContext, mesh: M.Mesh, timers=None) -> ClmContext:
     ctx.mesh = mesh
     tm.stop("clm.host_shard")
     return ctx
+
+
+def host_state_bytes(ctx: ClmContext) -> int:
+    """Bytes of the context's host state: the SH rows, their gradients and
+    both moments (768 a row of its shard)."""
+    return sum(_nbytes(t) for t in (ctx.sh_host, ctx.sh_grad_host, ctx.adam.exp_avg,
+                                    ctx.adam.exp_avg_sq))
 
 
 def _whole_rows(ctx: ClmContext, x: torch.Tensor) -> torch.Tensor:
@@ -290,13 +300,11 @@ def grow_context(ctx: ClmContext, new_cap: int, cfg, timers=None) -> ClmContext:
     tm = timers if timers is not None else Timer(enabled=False)
     C = ctx.sh_host.shape[0]
     tm.start("clm.grow_pin")
-    new = [torch.empty((new_cap, SH_COLS), dtype=torch.float32,
-                       pin_memory=ctx.device.type == "cuda") for _ in range(2)]
+    new = [host_zeros(new_cap, SH_COLS, ctx.device) for _ in range(2)]
     tm.stop("clm.grow_pin")
     tm.start("clm.grow_copy")
     for buf, old in zip(new, (ctx.sh_host, ctx.sh_grad_host)):
         buf[:C] = old
-        buf[C:] = 0.0
     ctx.sh_host, ctx.sh_grad_host = new
     ctx.adam.grow(new_cap)
     tm.stop("clm.grow_copy")
@@ -404,17 +412,34 @@ def _fetch(ctx: ClmContext, ids_dev: torch.Tensor, ids_host=None) -> torch.Tenso
     return _upload(ctx, host, ctx.up_rows)
 
 
+def _transition(prev_ids, next_ids):
+    """The host side of one working-set advance, from the camera with
+    `prev_ids` to the one with `next_ids` (host ids): (maps, the arriving
+    rows' ids), maps being [src | gsrc | gp] (`_invert_transition`, then
+    the positions in prev of the rows that leave)."""
+    pd, pn, gp, hn = _classify_transition(prev_ids, next_ids)
+    src, gsrc = _invert_transition(pd, pn, hn, len(prev_ids), len(next_ids))
+    return [src, gsrc, gp], next_ids[hn.long()]
+
+
+def _advance_rows(shc, grad_buf, h_dev, maps, n_next: int):
+    """The card side of the advance: (next SH rows, their carried
+    gradients, the gradient rows that leave) from the current rows, the
+    arriving rows `h_dev` and the int64 maps of `_transition`."""
+    shc_next = torch.cat([shc, h_dev])[maps[:n_next]]
+    grad_next = torch.cat([grad_buf, grad_buf.new_zeros((1, SH_COLS))])[
+        maps[n_next:2 * n_next]]
+    return shc_next, grad_next, grad_buf[maps[2 * n_next:]]
+
+
 def _advance(ctx: ClmContext, shc, grad_buf, prev_ids, next_ids):
     """Advance the working set from the camera with `prev_ids` to the one
     with `next_ids` (host ids). Returns (next SH rows, their carried
     gradients, the gradient rows that leave, their ids). Under card_gather
     the arriving rows' ids go up after the maps and the card gathers the
     rows by them."""
-    pd, pn, gp, hn = _classify_transition(prev_ids, next_ids)
-    n_prev, n_next = len(prev_ids), len(next_ids)
-    h_ids = next_ids[hn.long()]
-    src, gsrc = _invert_transition(pd, pn, hn, n_prev, n_next)
-    parts = [src, gsrc, gp]
+    parts, h_ids = _transition(prev_ids, next_ids)
+    n_next, gp = len(next_ids), parts[2]
     if ctx.card_gather:
         parts.append(h_ids)
     else:
@@ -422,15 +447,13 @@ def _advance(ctx: ClmContext, shc, grad_buf, prev_ids, next_ids):
     maps = ctx.up_idx.take(sum(len(t) for t in parts)).view(-1)
     torch.cat(parts, out=maps)
     maps_dev = _upload(ctx, maps, ctx.up_idx)
-    if ctx.card_gather:
-        h_dev = _fetch(ctx, maps_dev[2 * n_next + len(gp):])  # the arriving ids
-    ctx.h2d_bytes += _nbytes(h_dev) + _nbytes(maps)
-    maps = maps_dev.long()
-    shc_next = torch.cat([shc, h_dev])[maps[:n_next]]
-    grad_next = torch.cat([grad_buf, grad_buf.new_zeros((1, SH_COLS))])[
-        maps[n_next:2 * n_next]]
     g_end = 2 * n_next + len(gp)
-    return shc_next, grad_next, grad_buf[maps[2 * n_next:g_end]], prev_ids[gp.long()]
+    if ctx.card_gather:
+        h_dev = _fetch(ctx, maps_dev[g_end:])  # the arriving ids
+    ctx.h2d_bytes += _nbytes(h_dev) + _nbytes(maps)
+    shc_next, grad_next, g_out = _advance_rows(shc, grad_buf, h_dev,
+                                               maps_dev[:g_end].long(), n_next)
+    return shc_next, grad_next, g_out, prev_ids[gp.long()]
 
 
 def _timed_sparse_step(ctx: ClmContext, rows, grad_scale: float, step: int):
@@ -476,6 +499,35 @@ def _drain(ctx: ClmContext, pending, futures, grad_scale: float, step: int,
                                            grad_scale, step))
 
 
+def _plan(state, ctx: ClmContext, cams, width: int, height: int, cfg, n_chains: int = 1,
+          tm=None):
+    """Steps 1-2 of a batch: the visibility filters on the card, their ids
+    brought to the host, the camera order and the finish sets. Returns
+    (filters, host ids per camera, order, finish sets, never-seen rows,
+    the bytes read back)."""
+    tm = tm if tm is not None else Timer(enabled=False)
+    p = state.params
+    mesh = ctx.mesh
+    tm.start("clm.filters")
+    row0 = 0 if mesh is None else mesh.gauss_index * ctx.sh_host.shape[0]
+    F = oc.calculate_filters(p.xyz, p.quat, p.log_scale, state.alive, cams.viewmats,
+                             cams.Ks, width, height, cfg.model.radius_clip,
+                             sample_phase=-row0 % oc.SAMPLE_STRIDE)
+    flat = torch.cat(F.ids).cpu()
+    ids_host = list(torch.split(flat, F.counts.tolist()))
+    tm.stop("clm.filters")
+
+    tm.start("clm.order")
+    dist_m, counts = oc.order_inputs(F, mesh)
+    alive_host = state.alive.cpu()
+    order, finish_sets, never = _order_and_finish_sets(
+        ids_host, dist_m, alive_host, cfg.aux.reorder_by_min_sparsity_at_end, counts,
+        n_chains)
+    tm.stop("clm.order")
+    d2h = _nbytes(flat) + _nbytes(dist_m) + _nbytes(alive_host)
+    return F, ids_host, order, finish_sets, never, d2h
+
+
 def train_one_batch(state, opt_state, ctx: ClmContext, cams, gt, sh_degree,
                     lrs, adam_cfg, background, width, height, cfg, timers=None):
     """One batch (module docstring); on the context's mesh, this rank's
@@ -492,25 +544,9 @@ def train_one_batch(state, opt_state, ctx: ClmContext, cams, gt, sh_degree,
     n_chains = mesh.n_data if mesh is not None and bsz % mesh.n_data == 0 else 1
     chain = mesh.data_index if n_chains > 1 else 0
 
-    # 1. visibility filters on the card, the id lists brought to the host
-    tm.start("clm.filters")
-    row0 = 0 if mesh is None else mesh.gauss_index * ctx.sh_host.shape[0]
-    F = oc.calculate_filters(p.xyz, p.quat, p.log_scale, state.alive, cams.viewmats,
-                             cams.Ks, width, height, cfg.model.radius_clip,
-                             sample_phase=-row0 % oc.SAMPLE_STRIDE)
-    flat = torch.cat(F.ids).cpu()
-    ids_host = list(torch.split(flat, F.counts.tolist()))
-    tm.stop("clm.filters")
-
-    # 2-3. camera order and finish sets on the host
-    tm.start("clm.order")
-    dist_m, counts = oc.order_inputs(F, mesh)
-    alive_host = state.alive.cpu()
-    ctx.d2h_bytes += _nbytes(flat) + _nbytes(dist_m) + _nbytes(alive_host)
-    order, finish_sets, never = _order_and_finish_sets(
-        ids_host, dist_m, alive_host, cfg.aux.reorder_by_min_sparsity_at_end, counts,
-        n_chains)
-    tm.stop("clm.order")
+    F, ids_host, order, finish_sets, never, d2h = _plan(state, ctx, cams, width, height,
+                                                        cfg, n_chains, tm)
+    ctx.d2h_bytes += d2h
 
     ctx.adam.lr_cols = lrs["sh"].to("cpu", torch.float32).contiguous()
     ctx.adam.step_count += 1
@@ -603,6 +639,52 @@ def train_one_batch(state, opt_state, ctx: ClmContext, cams, gt, sh_degree,
     return new_state, new_opt, ctx, StepOut(losses, max(n_isects), acc.vis_any, n_isects)
 
 
+def prepare_device_loop(state, ctx: ClmContext, cams, gt, sh_degree, background,
+                        width: int, height: int, cfg):
+    """The card's share of a clm batch, alone (the JAX package's
+    `prepare_device_loop`). Runs the batch's filters, order and finish sets
+    as `train_one_batch` does, then stages on the card everything the batch
+    needs: the first camera's SH rows and, for each of the B - 1
+    transitions, the arriving rows and the maps of `_transition`. Returns
+    (run, n_launch_groups): run() replays the B micro steps and B - 1
+    advances with no host work, no upload and no gradient download, and
+    returns (the last camera's loss, the batch's `ClmAcc`); it may be
+    called again, as it writes none of its staged inputs. The card's Adam
+    and the host's are not part of it. n_launch_groups = 2B + 1: B micro
+    steps, B - 1 advances, the gradient buffer's and the accumulators'
+    allocations. Sizes are exact. On one process only (no mesh)."""
+    if ctx.mesh is not None:
+        raise ValueError("prepare_device_loop runs on one process, not on a mesh shard")
+    p = state.params
+    F, ids_host, order, _, _, _ = _plan(state, ctx, cams, width, height, cfg)
+    order = [int(c) for c in order]
+    dev = ctx.device
+    shc0 = native.gather_rows(ctx.sh_host, ids_host[order[0]]).to(dev)
+    staged = []
+    for a, b in zip(order[:-1], order[1:]):
+        parts, h_ids = _transition(ids_host[a], ids_host[b])
+        staged.append((native.gather_rows(ctx.sh_host, h_ids).to(dev),
+                       torch.cat(parts).to(dev).long(), len(ids_host[b])))
+    campos = cams.camtoworlds[:, :3, 3]
+
+    def run():
+        shc = shc0
+        grad_buf = torch.zeros_like(shc0)
+        acc = oc.make_clm_acc(p)
+        loss = None
+        for pos, cam in enumerate(order):
+            loss, grad_buf = oc.clm_fused_step(
+                p, shc, grad_buf, F.ids[cam], cams.viewmats[cam], cams.Ks[cam],
+                campos[cam], gt[cam], acc, sh_degree, background, width, height,
+                lambda_dssim=cfg.opt.lambda_dssim, loss_scale=cfg.opt.lr_scale_loss)
+            if pos + 1 < len(order):
+                h_dev, maps, n_next = staged[pos]
+                shc, grad_buf, _ = _advance_rows(shc, grad_buf, h_dev, maps, n_next)
+        return loss, acc
+
+    return run, 2 * len(order) + 1
+
+
 def _sum_chains(acc: oc.ClmAcc, losses, n_isects, mesh: M.Mesh):
     """The data group's chains combined: the accumulators summed (visibility
     as a count) in one all_reduce, and the (S,) losses and instance counts
@@ -664,7 +746,8 @@ def restore_extra(ctx: ClmContext, arrays: dict) -> ClmContext:
     """The host SH rows, moments and step count of `strategy_extra.npz`
     (copied: the context updates them in place)."""
     sh = torch.from_numpy(np.array(arrays["clm.sh_host"], np.float32, order="C"))
-    ctx.sh_host = sh.pin_memory() if ctx.device.type == "cuda" else sh
+    ctx.sh_host = (host_zeros(*sh.shape, ctx.device).copy_(sh) if ctx.device.type == "cuda"
+                   else sh)
     ctx.sh_grad_host = host_zeros(sh.shape[0], SH_COLS, ctx.device)
     for k in ("exp_avg", "exp_avg_sq"):
         setattr(ctx.adam, k, torch.from_numpy(

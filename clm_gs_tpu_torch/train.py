@@ -322,6 +322,13 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
     frozen_param_sum = frozen_probe() if check_frozen else None
 
     logger.write(f"setup time: {time.time() - t_setup:.1f} s\n")
+    if cfg.bench.check_gpu_memory or cfg.bench.check_cpu_memory:
+        # the load's peak: the state, the strategy's host buffers, the loader
+        logger.write("memory after setup: " + memory_report(
+            cfg.bench.check_gpu_memory, cfg.bench.check_cpu_memory) + "\n")
+        if clm:
+            logger.write(f"clm host state: {strategy.host_state_bytes(strategy_ctx)} "
+                         "bytes\n")
     e2e.start()
     ema_loss = None
     iteration = start_iter

@@ -100,7 +100,8 @@ def next_capacity(n: int, granule: int = 65536, headroom: float = 1.25) -> int:
 
 def memory_report(check_device: bool = False, check_host: bool = False) -> str:
     """--check_gpu_memory / --check_cpu_memory: the card's peak allocated
-    bytes (torch.cuda.max_memory_allocated) and the process's peak RSS."""
+    bytes (torch.cuda.max_memory_allocated) and the process's peak RSS
+    (`peak_rss_bytes`)."""
     parts = []
     if check_device:
         if torch.cuda.is_available() and torch.cuda.is_initialized():
@@ -111,8 +112,37 @@ def memory_report(check_device: bool = False, check_host: bool = False) -> str:
         else:
             parts.append("device peak n/a")
     if check_host:
+        parts.append(f"host peak rss {peak_rss_bytes() / 2**30:.2f} GB")
+    return ", ".join(parts)
+
+
+def _proc_status_bytes(field: str):
+    """A memory field of /proc/self/status in bytes, or None off Linux."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith(field + ":"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return None
+
+
+def peak_rss_bytes() -> int:
+    """The process's peak resident set: VmHWM, or getrusage's ru_maxrss off
+    Linux. Either may start at the peak of the process that started this
+    one (on an H100 host, a run started by a 20 GB process read 20.08 GiB,
+    by a small one 5.49), so a peak of one phase is taken by sampling
+    `rss_bytes` (utils/bigcity.py)."""
+    peak = _proc_status_bytes("VmHWM")
+    if peak is None:
         import resource
 
-        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
-        parts.append(f"host peak rss {rss:.2f} GB")
-    return ", ".join(parts)
+        peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    return peak
+
+
+def rss_bytes() -> int:
+    """The process's resident set now (VmRSS; its peak off Linux)."""
+    now = _proc_status_bytes("VmRSS")
+    return peak_rss_bytes() if now is None else now

@@ -19,7 +19,9 @@ ported: the JAX package does not use it either.
 from __future__ import annotations
 
 import ctypes
+import weakref
 
+import numpy as np
 import torch
 
 from clm_gs_tpu_torch import _build
@@ -31,6 +33,40 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
 # csrc/pinned_gather.cu's status codes besides cudaError values
 _NOT_PINNED_HOST = -1
 _NO_DEVICE_POINTER = -2
+
+
+# cudaHostRegister's flags: portable (every context) and mapped (the card
+# reads the rows in place, csrc/pinned_gather.cu)
+_REGISTER_FLAGS = 1 | 2
+# from this size up a host buffer is page-locked at its exact size; below
+# it the caching host allocator serves it, whose freed blocks later buffers
+# of their size class reuse (a mesh densification page-locks its host state
+# anew every round)
+EXACT_PIN_BYTES = 1 << 30
+
+
+def pinned_zeros(shape, dtype=torch.float32) -> torch.Tensor:
+    """Zeros in page-locked host memory. The caching host allocator behind
+    `pin_memory=True` rounds each block up to a power of two, all of it
+    page-locked and resident: 1.79x the bytes of BigCity-25M's (25,034,752,
+    48) SH rows, and for the 102M scene's two (C, 48) buffers more than its
+    host holds. So a buffer of EXACT_PIN_BYTES or more is a numpy allocation
+    registered with the CUDA runtime (cudaHostRegister) at its exact size,
+    and unregistered when the array, which every view of the tensor keeps
+    alive, goes."""
+    arr = np.zeros(0, dtype=torch.empty(0, dtype=dtype).numpy().dtype)
+    if int(np.prod(shape)) * arr.itemsize < EXACT_PIN_BYTES:
+        return torch.zeros(shape, dtype=dtype, pin_memory=True)
+    arr = np.zeros(shape, dtype=arr.dtype)
+    cudart = torch.cuda.cudart()
+    torch.cuda.check_error(cudart.cudaHostRegister(arr.ctypes.data, arr.nbytes,
+                                                   _REGISTER_FLAGS))
+    weakref.finalize(arr, _unregister, arr.ctypes.data)
+    return torch.from_numpy(arr)
+
+
+def _unregister(ptr: int):
+    torch.cuda.cudart().cudaHostUnregister(ptr)
 
 
 def _check_table(sh_host: torch.Tensor):

@@ -12,43 +12,56 @@ _TYPES = {
     "short": "<i2", "ushort": "<u2", "int": "<i4", "uint": "<u4",
     "int32": "<i4", "uint32": "<u4",
 }
+CHUNK_ROWS = 1 << 20
 
 
 def read_ply_vertices(path):
-    """Returns {property_name: (N,) array} for the `vertex` element."""
+    """Returns {property_name: (N,) array} for the `vertex` element. A binary
+    file is read CHUNK_ROWS rows at a time into the output arrays, so the
+    host holds them and one chunk."""
     with open(path, "rb") as f:
-        data = f.read()
-    end = data.index(b"end_header\n") + len(b"end_header\n")
-    header = data[:end].decode("ascii", errors="replace").splitlines()
-    fmt = None
-    n = None
-    props = []
-    in_vertex = False
-    for line in header:
-        t = line.split()
-        if not t:
-            continue
-        if t[0] == "format":
-            fmt = t[1]
-        elif t[0] == "element":
-            in_vertex = t[1] == "vertex"
-            if in_vertex:
-                n = int(t[2])
-        elif t[0] == "property" and in_vertex:
-            if t[1] == "list":
-                raise ValueError(f"{path}: list properties in the vertex element")
-            props.append((t[2], _TYPES[t[1]]))
-    if fmt is None or n is None:
-        raise ValueError(f"{path}: no format or vertex element in the header")
-    dtype = np.dtype(props)
-    if fmt == "binary_little_endian":
-        arr = np.frombuffer(data[end : end + n * dtype.itemsize], dtype=dtype)
-    elif fmt == "ascii":
-        rows = data[end:].decode("ascii").split("\n")[:n]
-        arr = np.array(
-            [tuple(float(v) for v in r.split()) for r in rows], dtype=dtype
-        )
-    else:
-        raise ValueError(f"unsupported PLY format {fmt}")
-    return {name: np.ascontiguousarray(arr[name]) for name, _ in props}
-
+        lines = []
+        while not lines or lines[-1] != b"end_header\n":
+            line = f.readline()
+            if not line:
+                raise ValueError(f"{path}: no end_header")
+            lines.append(line)
+        header = b"".join(lines).decode("ascii", errors="replace").splitlines()
+        fmt = None
+        n = None
+        props = []
+        in_vertex = False
+        for line in header:
+            t = line.split()
+            if not t:
+                continue
+            if t[0] == "format":
+                fmt = t[1]
+            elif t[0] == "element":
+                in_vertex = t[1] == "vertex"
+                if in_vertex:
+                    n = int(t[2])
+            elif t[0] == "property" and in_vertex:
+                if t[1] == "list":
+                    raise ValueError(f"{path}: list properties in the vertex element")
+                props.append((t[2], _TYPES[t[1]]))
+        if fmt is None or n is None:
+            raise ValueError(f"{path}: no format or vertex element in the header")
+        dtype = np.dtype(props)
+        if fmt == "binary_little_endian":
+            out = {name: np.empty(n, dt) for name, dt in props}
+            buf = np.empty(min(CHUNK_ROWS, max(n, 1)), dtype=dtype)
+            for i in range(0, n, CHUNK_ROWS):
+                rows = buf[: min(CHUNK_ROWS, n - i)]
+                if f.readinto(memoryview(rows).cast("B")) != rows.nbytes:
+                    raise ValueError(f"{path}: fewer than the {n} rows its header states")
+                for name, _ in props:
+                    out[name][i:i + len(rows)] = rows[name]
+            return out
+        if fmt == "ascii":
+            rows = f.read().decode("ascii").split("\n")[:n]
+            arr = np.array(
+                [tuple(float(v) for v in r.split()) for r in rows], dtype=dtype
+            )
+            return {name: np.ascontiguousarray(arr[name]) for name, _ in props}
+    raise ValueError(f"unsupported PLY format {fmt}")

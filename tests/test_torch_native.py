@@ -199,6 +199,21 @@ def test_find_tour_matches_plain_and_reference(n):
           jnative.find_tour(dist, time_budget_s=10.0))
 
 
+def test_find_tour_converges_at_64_cameras():
+    """A bsz-64 batch's order does not depend on the time budget: up to 64
+    cameras the 2-opt runs to convergence, also under a budget that would
+    cut it (the reference's own tour, given time to converge)."""
+    reference_native()
+    grid = np.stack(np.meshgrid(np.arange(8), np.arange(8)), -1).reshape(-1, 2)
+    a = np.abs(grid[:, None] - grid[None]).sum(-1) * 1000
+    a = a + np.random.RandomState(64).randint(0, 50, (64, 64))
+    dist = np.minimum(a, a.T).astype(np.int32)
+    got = tnative.find_tour(torch.from_numpy(dist), time_budget_s=1e-9)
+    _same(got, tnative.find_tour(torch.from_numpy(dist)),
+          tnative.find_tour_plain(torch.from_numpy(dist)),
+          jnative.find_tour(dist, time_budget_s=10.0))
+
+
 def test_gather_and_scatter_rows_match_plain_and_reference():
     reference_native()
     rng = np.random.RandomState(SEED)

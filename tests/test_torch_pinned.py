@@ -343,6 +343,38 @@ def test_kernel_reads_views_and_registered_memory(dev):
 
 
 @pytest.mark.cuda
+def test_pinned_zeros_page_locks_exactly_its_bytes(dev, monkeypatch):
+    """hostmem.pinned_zeros from EXACT_PIN_BYTES up (here 1,000 rows): zeros,
+    pinned by registration of its own numpy memory, read by the kernel and
+    by an asynchronous copy, and unregistered once its last view is gone;
+    below it, the caching allocator's pinned zeros."""
+    import gc
+
+    small = hostmem.pinned_zeros((10, 48))
+    assert small.is_pinned() and not small.any() and small.shape == (10, 48)
+    unregistered = []
+    real = hostmem._unregister
+    monkeypatch.setattr(hostmem, "_unregister",
+                        lambda ptr: (unregistered.append(ptr), real(ptr)))
+    monkeypatch.setattr(hostmem, "EXACT_PIN_BYTES", 1000 * 48 * 4)
+    t = hostmem.pinned_zeros((1000, 48))
+    assert t.is_pinned() and not t.any()
+    t.copy_(torch.from_numpy(_table(1000, seed=8)))
+    ids = _ids(300, 1000, torch.int32, 8)
+    got = hostmem.gather_rows_pinned(t, ids.to(dev))
+    torch.testing.assert_close(got.cpu(), t[ids.long()], rtol=0, atol=0)
+    back = t.to(dev, non_blocking=True).cpu()
+    torch.testing.assert_close(back, t, rtol=0, atol=0)
+    view, ptr = t[10:], t.data_ptr()
+    del t
+    gc.collect()
+    assert view.is_pinned() and not unregistered
+    del view, got, back
+    gc.collect()
+    assert unregistered == [ptr]
+
+
+@pytest.mark.cuda
 def test_grow_and_restore_give_the_kernel_new_buffers(dev):
     """grow_context and restore_extra replace sh_host with new pinned
     buffers; the kernel looks the address up on every call and reads the
