@@ -72,6 +72,12 @@ Phases, one JSON line each:
      runs at 1x2 and 2x1 (and 2x2 with 4) in spawned NCCL processes, with
      the data sum's ms and bytes a batch (two camera chains where the data
      axis is 2).
+  6e. bench4k: a fresh bench scene at 3840x2160 (60x68 tiles of 64x32;
+     clm_gs_tpu_torch/utils/bench4k.py): one warm-up train_step and 3 timed
+     ones (finite losses, Mpix/s, s/batch, peak device memory, each
+     camera's instances, each kernel's launches over the timed steps), then
+     each kernel against its plain version on camera 0's 4K shapes, timed
+     and bounded, within the full-width tolerances.
   7. cli: the bench scene's 1M Gaussians written as a COLMAP scene (32
      cameras of 1237x822, utils/synthetic_colmap.py). A short run to the
      first densification round reports the rows each gradient threshold
@@ -126,6 +132,15 @@ Phases, one JSON line each:
      the two runs' frames within one level, frame 0 of both as floats in
      this process within 1e-5 relative and 1e-6 absolute, frames/s, peak
      device memory and the forward and fill launches of each run.
+ 10b. parity: the JAX repo's strategy-parity scene (48 cameras of 320x240,
+     seed 3; clm_gs_tpu_torch/utils/parity30k.py) trained under each of the
+     three strategies, a process each, the three at once sharing the card,
+     with its schedule cut to PARITY_ITERS iterations
+     (densification from 500, the first opacity reset at 3,000, an eval
+     every 1,000): each offload strategy's test PSNR within 0.5 dB of
+     no_offload's at every eval, test PSNR rising from the first eval to
+     the last, finite losses, every kernel launched, and the process's RSS
+     at each eval.
  11. bigcity: the reference's BigCity regime at its 25M size
      (clm_gs_tpu_torch/utils/bigcity.py, each step a process of its own):
      `make` draws 25,000,000 city Gaussians, renders 64 cameras of 640x400
@@ -380,6 +395,9 @@ def run(torch, report):
     report["clm_mesh_step"] = clm_mesh_step(torch)
     emit(report["clm_mesh_step"])
     torch.cuda.empty_cache()
+    report["bench4k"] = bench4k_run(torch)
+    emit(report["bench4k"])
+    torch.cuda.empty_cache()
 
     # 7. and 8. the training CLI under no_offload and naive_offload on one
     # synthetic COLMAP scene at full width, written and decoded once
@@ -408,6 +426,9 @@ def run(torch, report):
         report["trajectory"] = trajectory_run(torch, work, colmap)
         emit(report["trajectory"])
     torch.cuda.empty_cache()
+    report["parity"] = parity_run(torch)
+    emit(report["parity"])
+    torch.cuda.empty_cache()
 
     # 11. the BigCity regime on one card
     report["bigcity"] = bigcity_run(torch)
@@ -435,15 +456,22 @@ def run(torch, report):
                 "trajectory_launches": {f: r["launches"].get(k, 0) for f, r in
                                         report["trajectory"]["runs"].items()},
                 "bigcity_launches": {f: r.get(k, 0) for f, r in
-                                     report["bigcity"]["launches"].items()}}
+                                     report["bigcity"]["launches"].items()},
+                "bench4k_launches": report["bench4k"]["launches"].get(k, 0),
+                "parity_launches": {s: r["launches"].get(k, 0) for s, r in
+                                    report["parity"]["runs"].items()}}
 
     g = report["clm_step"]["pinned_gather"]
+    k4 = report["bench4k"]["kernels"]
     emit({"kernels": [
         {"name": k, "status": "ported", "route": "cuda", "source": KERNELS[k][0],
          "replaces": KERNELS[k][1], "launches": launches.get(k, 0), **other_launches(k),
          "max_abs_err": full[k]["max_abs_err"], "ms": full[k]["ms"],
          "plain_ms": full[k]["plain_ms"], "bound_ms": full[k]["bound_ms"],
-         "bound_by": full[k]["bound_by"], "library_ms": full[k]["library_ms"]}
+         "bound_by": full[k]["bound_by"], "library_ms": full[k]["library_ms"],
+         "ms_4k": k4[k]["ms"], "bound_ms_4k": k4[k]["bound_ms"],
+         "max_abs_err_4k": k4[k]["max_abs_err"], "plain_ms_4k": k4[k]["plain_ms"],
+         "library_ms_4k": k4[k]["library_ms"]}
         for k in KERNELS
     ] + [
         # its main path is clm_step's card-gather variant (first batch)
@@ -496,6 +524,11 @@ def summary(report):
         "clm_mesh": {k: report["clm_mesh"][k] for k in (
             "it_per_s", "clm_it_per_s", "final_test_psnr_minus_clm",
             "densify_gather_ms_calls", "host_gather_bytes", "peak_device_bytes")},
+        "bench4k": {k: report["bench4k"][k] for k in (
+            "resolution", "mpix_s", "sec_per_batch", "peak_device_bytes", "n_isects",
+            "s")},
+        "parity": {k: report["parity"][k] for k in ("iterations", "test_psnr",
+                                                     "max_gap_db", "rss_gb_at_eval", "s")},
         "bigcity": {k: report["bigcity"][k] for k in (
             "n", "capacity", "it_per_s", "s_per_batch", "init_test_psnr",
             "final_test_psnr", "peak_device_bytes", "sampled_peak_rss_bytes",
@@ -528,9 +561,23 @@ def pair_counts(torch, table, gauss_ids, tile_offsets, last, w, h):
     starts = tile_offsets[:-1].long()
     counts = tile_offsets[1:].long() - starts
     last_t = R._to_tiles(last[None].long(), fill=-1)[:, 0]
+    n = {d: dict.fromkeys(KINDS, 0) for d in ("fwd", "bwd")}
+    depths = []
+    # in groups of tiles, as the plain versions walk them
+    for g in range(0, px.shape[0], R.TILE_GROUP):
+        s = slice(g, g + R.TILE_GROUP)
+        depths.append(_group_pairs(torch, n, table, gauss_ids, starts[s], counts[s],
+                                   last_t[s], px[s], py[s], inside[s]))
+    return n, {d: torch.cat([x[d] for x in depths]) for d in ("fwd", "bwd")}
+
+
+def _group_pairs(torch, n, table, gauss_ids, starts, counts, last_t, px, py, inside):
+    """pair_counts of a group of tiles: adds its pairs to `n`, returns its
+    depths."""
+    from clm_gs_tpu_torch.ops import rasterize as R
+
     T = torch.ones_like(px)
     done = ~inside
-    n = {d: dict.fromkeys(KINDS, 0) for d in ("fwd", "bwd")}
     depth = {"fwd": torch.zeros_like(last_t),
              "bwd": torch.clamp_min(last_t - starts[:, None] + 1, 0)}
     for k0 in range(0, int(counts.max()), R.CHUNK):
@@ -558,7 +605,7 @@ def pair_counts(torch, table, gauss_ids, tile_offsets, last, w, h):
         done = done | viol.any(1)
         if bool(done.all()):
             break
-    return n, depth
+    return depth
 
 
 def walk(depth, gw, gh):
@@ -2603,6 +2650,90 @@ def trajectory_run(torch, work, scene):
     check(png_diff is not None and png_diff <= 1,
           f"trajectory: frames of the two strategies differ by {png_diff} levels")
     check(close, f"trajectory: frame 0 differs by {err.max().item()} between strategies")
+    return result
+
+
+def bench4k_run(torch):
+    """The bench scene at 3840x2160 (utils/bench4k.py `bench_step`): a
+    warm-up and 3 timed train_steps with each kernel's launches over the
+    timed ones, then each kernel against its plain version on camera 0's
+    4K shapes, timed and bounded. Gates: finite losses, every kernel
+    launched, the kernels within tolerance (kernel_checks)."""
+    from clm_gs_tpu_torch.utils.bench4k import bench_step
+
+    t0 = time.perf_counter()
+    rec, scene = bench_step(device="cuda")
+    step_s = time.perf_counter() - t0
+    finite = lambda xs: all(v == v and abs(v) != float("inf") for v in xs)
+    check(finite(rec["warm_losses"]) and finite(rec["losses"]),
+          f"bench4k: losses {rec['warm_losses']}, {rec['losses']}")
+    check(all(rec["launches"].get(k, 0) > 0 for k in KERNELS),
+          f"bench4k: a kernel of the path never launched: {rec['launches']}")
+    t0 = time.perf_counter()
+    kernels = kernel_checks(torch, reps=10, scene=scene)
+    kernels_s = time.perf_counter() - t0
+    del scene
+    return {"phase": "bench4k", **rec, "step_s": step_s, "kernels": kernels,
+            "kernels_s": kernels_s, "s": step_s + kernels_s}
+
+
+# The parity phase: the parity schedule cut to PARITY_ITERS iterations (the
+# densification from 500 and the first opacity reset at 3,000 kept)
+PARITY_ITERS = 4000
+PARITY_PSNR_DB = 0.5
+
+
+def parity_run(torch, iters=PARITY_ITERS):
+    """The parity scene (utils/parity30k.py `make`) trained under each
+    strategy with `train_argv(strategy, iters, ...)` through
+    `parity30k.run_concurrent`: a process a strategy, the three at once.
+    Gates: finite losses, each offload strategy's test
+    PSNR within PARITY_PSNR_DB of no_offload's at every eval, test PSNR
+    rising from the first eval to the last, every kernel launched."""
+    import re
+
+    from clm_gs_tpu_torch.utils import parity30k as P
+
+    losses = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parity_") as root:
+        P.make(root)
+        make_s = time.perf_counter() - t0
+        runs = P.run_concurrent(root, P.STRATEGIES, iters, timeout=900)
+        for s in P.STRATEGIES:
+            with open(f"{P.run_dir(root, s)}/python.log") as f:
+                losses[s] = [float(v) for v in
+                             re.findall(r"\) loss: ([\d.naife+-]+)", f.read())]
+            runs[s]["rss_gb_at_eval"] = P.eval_rss_gb(P.run_dir(root, s))
+    psnr = {s: r["test_psnr"] for s, r in runs.items()}
+    base = psnr["no_offload"]
+    gaps = {s: {m: p[m] - base[m] for m in p if m in base} for s, p in psnr.items()
+            if s != "no_offload"}
+    result = {
+        "phase": "parity", "iterations": iters, "make_s": make_s,
+        "test_psnr": psnr, "gap_db": gaps,
+        "max_gap_db": max((abs(v) for g in gaps.values() for v in g.values()), default=None),
+        "final_n3dgs": {s: r["final_n3dgs"] for s, r in runs.items()},
+        "n_densify_events": {s: r["n_densify_events"] for s, r in runs.items()},
+        "end2end_s": {s: r["end2end_s"] for s, r in runs.items()},
+        "reached_iter": {s: r["reached_iter"] for s, r in runs.items()},
+        "rss_gb_at_eval": {s: r["rss_gb_at_eval"] for s, r in runs.items()},
+        "peak_device_bytes": {s: r["peak_device_bytes"] for s, r in runs.items()},
+        "run_s": {s: r["run_s"] for s, r in runs.items()},
+        "concurrent": True,
+        "runs": {s: {"launches": r["launches"]} for s, r in runs.items()},
+        "tol": {"psnr_db": PARITY_PSNR_DB}, "s": time.perf_counter() - t0,
+    }
+    for s, ls in losses.items():
+        check(ls and all(v == v and abs(v) != float("inf") for v in ls),
+              f"parity {s}: losses {ls}")
+        p = list(psnr[s].values())
+        check(len(p) >= 2 and p[-1] > p[0], f"parity {s}: test PSNR {psnr[s]}")
+        check(all(runs[s]["launches"].get(k, 0) > 0 for k in KERNELS),
+              f"parity {s}: a kernel of the path never launched: {runs[s]['launches']}")
+    for s, g in gaps.items():
+        check(len(g) == len(base) and all(abs(v) <= PARITY_PSNR_DB for v in g.values()),
+              f"parity {s}: test PSNR {psnr[s]} against no_offload's {base}")
     return result
 
 

@@ -8,7 +8,7 @@ column-vector convention (``p_cam = viewmat @ [p; 1]``).
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Optional
 
 import numpy as np
@@ -82,6 +82,35 @@ class Camera:
     @property
     def viewmat(self) -> np.ndarray:
         return get_world2view(self.R, self.T, self.trans, self.scale)
+
+    @property
+    def K(self) -> np.ndarray:
+        return intrinsics_from_fov(self.fovx, self.fovy, self.width, self.height)
+
+    @property
+    def camera_center(self) -> np.ndarray:
+        return np.linalg.inv(self.viewmat)[:3, 3].astype(np.float32)
+
+
+def nudge_camera(cam: Camera, dx: float = 0.0, dy: float = 0.0, dz: float = 0.0) -> Camera:
+    """The camera with its centre moved along its view axes."""
+    c2w = np.linalg.inv(cam.viewmat.astype(np.float64))
+    c2w[:3, 3] += c2w[:3, :3] @ np.array([dx, dy, dz])
+    w2c = np.linalg.inv(c2w)
+    return replace(cam, R=w2c[:3, :3].T, T=w2c[:3, 3])
+
+
+@dataclass(frozen=True)
+class MiniCam:
+    """A pose-only camera for novel-view rendering."""
+
+    width: int
+    height: int
+    fovx: float
+    fovy: float
+    viewmat: np.ndarray  # (4, 4) world-to-view
+    znear: float = 0.01
+    zfar: float = 100.0
 
     @property
     def K(self) -> np.ndarray:

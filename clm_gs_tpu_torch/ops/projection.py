@@ -27,6 +27,16 @@ class ProjResults(NamedTuple):
     compensations: torch.Tensor  # (C, N)
 
 
+def quat_scale_to_covar(quats, scales):
+    """(N, 4) unnormalized quats and (N, 3) activated scales -> (N, 3, 3)
+    covariance R S S^T R^T (the oracle's form; the hot path uses
+    covar_cols)."""
+    from clm_gs_tpu_torch.utils.general import build_scaling_rotation
+
+    M = build_scaling_rotation(scales, quats)
+    return M @ M.transpose(-1, -2)
+
+
 def _rot_cols(quats):
     """Unnormalized quats -> the 9 rotation-matrix entries as (N,) columns."""
     w, x, y, z = quats[:, 0], quats[:, 1], quats[:, 2], quats[:, 3]
@@ -157,3 +167,11 @@ def fully_fused_projection(
         for c in range(viewmats.shape[0])
     ]
     return ProjResults(*(torch.stack(x) for x in zip(*outs)))
+
+
+def visibility_mask(means, quats, scales, viewmats, Ks, width: int, height: int,
+                    radius_clip: float = 0.0, alive=None):
+    """Per-camera visibility as a dense (C, N) bool mask: radii > 0."""
+    proj = fully_fused_projection(means, quats, scales, viewmats, Ks, width, height,
+                                  radius_clip, alive)
+    return proj.radii > 0

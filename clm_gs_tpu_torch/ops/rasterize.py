@@ -38,6 +38,9 @@ T_EPS = 1e-4
 MAX_ALPHA = 0.999
 NGC = 9  # table columns: mx, my, ca, cb, cc, op, r, g, b
 CHUNK = 64  # instances per step of the plain versions
+# tiles per pass of the plain versions: their (tiles, CHUNK, P) maps stay
+# within 2**28 floats each (a 4K frame's 4,080 tiles take two passes)
+TILE_GROUP = 2**28 // (CHUNK * P)
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
 _BWD_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 7
@@ -112,6 +115,23 @@ def rasterize_fwd_plain(table, gauss_ids, tile_offsets, background, width: int,
     nt = px.shape[0]
     starts = tile_offsets[:-1].long()
     counts = tile_offsets[1:].long() - starts
+    parts = [_fwd_tiles(table, gauss_ids, starts[g:g + TILE_GROUP],
+                        counts[g:g + TILE_GROUP], px[g:g + TILE_GROUP],
+                        py[g:g + TILE_GROUP], inside[g:g + TILE_GROUP])
+             for g in range(0, nt, TILE_GROUP)] or [
+        _fwd_tiles(table, gauss_ids, starts, counts, px, py, inside)]
+    rgb, acc, T, last = (torch.cat(x) for x in zip(*parts))
+    image = rgb + T[:, None] * background[None, :, None]
+    out = _from_tiles(torch.cat([image, acc[:, None], T[:, None]], 1), width, height)
+    last_img = _from_tiles(last[:, None], width, height)[0].to(torch.int32)
+    return (out[0:3].contiguous(), out[3].contiguous(), out[4].contiguous(),
+            last_img.contiguous())
+
+
+def _fwd_tiles(table, gauss_ids, starts, counts, px, py, inside):
+    """The forward of a group of tiles: their (rgb, acc, T, last)."""
+    dev = table.device
+    nt = px.shape[0]
     T = torch.ones(nt, P, device=dev)
     done = ~inside
     rgb = torch.zeros(nt, 3, P, device=dev)
@@ -138,11 +158,7 @@ def rasterize_fwd_plain(table, gauss_ids, tile_offsets, background, width: int,
         done = done | viol.any(1)
         if bool(done.all()):
             break
-    image = rgb + T[:, None] * background[None, :, None]
-    out = _from_tiles(torch.cat([image, acc[:, None], T[:, None]], 1), width, height)
-    last_img = _from_tiles(last[:, None], width, height)[0].to(torch.int32)
-    return (out[0:3].contiguous(), out[3].contiguous(), out[4].contiguous(),
-            last_img.contiguous())
+    return rgb, acc, T, last
 
 
 @torch.no_grad()
@@ -161,9 +177,21 @@ def rasterize_bwd_plain(table, gauss_ids, tile_offsets, image, alpha, last,
     counts = tile_offsets[1:].long() - starts
     # instances after a tile's last contributor get zero gradient
     needed = torch.minimum(counts, torch.clamp_min(last_t.amax(1) - starts + 1, 0))
+    rows = torch.zeros(m, NGC, device=dev)
+    for g in range(0, nt, TILE_GROUP):
+        s = slice(g, g + TILE_GROUP)
+        _bwd_tiles(rows, table, gauss_ids, starts[s], needed[s], px[s], py[s], v4[s],
+                   last_t[s], d_tot[s])
+    return rows
+
+
+def _bwd_tiles(rows, table, gauss_ids, starts, needed, px, py, v4, last_t, d_tot):
+    """The backward of a group of tiles, written into their instances'
+    `rows`."""
+    dev = table.device
+    nt = px.shape[0]
     T = torch.ones(nt, P, device=dev)
     E = torch.zeros(nt, P, device=dev)
-    rows = torch.zeros(m, NGC, device=dev)
     max_needed = int(needed.max()) if nt else 0
     for k0 in range(0, max_needed, CHUNK):
         idx, valid, attrs, dx, dy, vis, ga, alpha_k, ok = _chunk(
@@ -198,7 +226,6 @@ def rasterize_bwd_plain(table, gauss_ids, tile_offsets, image, alpha, last,
         rows[idx[valid]] = g[valid]
         T = T * cp[:, -1]
         E = cum[:, -1]
-    return rows
 
 
 def rasterize_fwd_cuda(table, gauss_ids, tile_offsets, background, width: int,

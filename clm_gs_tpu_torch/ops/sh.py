@@ -78,3 +78,16 @@ def spherical_harmonics(active_degree: int, dirs, coeffs):
     """dirs (N, 3), coeffs (N, 16, 3) -> (N, 3) raw SH colours."""
     basis = sh_basis(dirs) * degree_mask(active_degree, dirs.dtype, dirs.device)
     return torch.einsum("nk,nkc->nc", basis, coeffs)
+
+
+def sh_color_flat(basis, sh_flat):
+    """A masked (N, 16) basis contracted with the flat (N, 48) table:
+    color_c = sum_k basis_k * sh[:, 3k + c]."""
+    return torch.stack([torch.sum(basis * sh_flat[:, c::3], dim=-1) for c in range(3)],
+                       dim=-1)
+
+
+def eval_color(active_degree: int, means, campos, coeffs):
+    """The colour path: dirs -> SH -> +0.5 -> clamp_min(0)."""
+    rgb = spherical_harmonics(active_degree, means - campos[None, :], coeffs)
+    return torch.clamp_min(rgb + 0.5, 0.0)

@@ -77,3 +77,25 @@ def combined_loss_batch(images, gts, lambda_dssim: float = LAMBDA_DSSIM):
     ssim_b = torch.mean(m.reshape(Bc, c, Hh, Ww), dim=(1, 2, 3))
     l1_b = torch.mean(torch.abs(images - gts), dim=(1, 2, 3))
     return (1.0 - lambda_dssim) * l1_b + lambda_dssim * (1.0 - ssim_b)
+
+
+def l1_loss_pixelwise_masked(img, gt, mask):
+    """Masked L1: the mean of |img - gt| over the (H, W) mask's pixels."""
+    diff = torch.abs(img - gt) * mask
+    return torch.sum(diff) / torch.clamp_min(torch.sum(mask) * img.shape[0], 1.0)
+
+
+def ssim_masked(img, gt, mask, window_size: int = WINDOW_SIZE):
+    """Masked SSIM: the mean of the SSIM map over the mask's pixels."""
+    m = _ssim_map(img, gt, window_size)
+    return torch.sum(m * mask) / torch.clamp_min(torch.sum(mask) * img.shape[0], 1.0)
+
+
+def pixelwise_l1_with_mask(img, gt, mask):
+    """The (3, H, W) map of |img - gt|, zero outside the (H, W) mask."""
+    return torch.abs(img - gt) * mask[None, :, :]
+
+
+def pixelwise_ssim_with_mask(img, gt, mask, window_size: int = WINDOW_SIZE):
+    """The per-pixel SSIM map, zero outside the (H, W) mask."""
+    return _ssim_map(img, gt, window_size) * mask[None, :, :]

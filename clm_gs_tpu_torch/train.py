@@ -70,7 +70,8 @@ from clm_gs_tpu_torch.utils.checkpoint import (latest_checkpoint,
 from clm_gs_tpu_torch.utils.general import (check_device,
                                             check_update_at_this_iter,
                                             get_expon_lr_func, memory_report,
-                                            next_capacity, psnr as psnr_fn)
+                                            next_capacity, psnr as psnr_fn,
+                                            rss_bytes)
 from clm_gs_tpu_torch.utils.logger import NullLogger, RunLogger
 from clm_gs_tpu_torch.utils.timer import End2endTimer, Timer
 
@@ -107,11 +108,8 @@ def _device_gb(device) -> float:
 
 
 def _host_gb() -> float:
-    try:
-        import psutil
-    except ImportError:
-        return 0.0
-    return psutil.Process().memory_info().rss / 2**30
+    """The process's resident set in GiB, read from /proc (psutil's rss)."""
+    return rss_bytes() / 2**30
 
 
 def training(cfg: Config, device="cuda"):
@@ -640,7 +638,7 @@ def training_report(cfg, scene, state, sh_degree, background, iteration, logger,
                     flush()
         flush()
         logger.eval_result(iteration, name, float(np.mean(l1s)),
-                           float(np.mean(psnrs)))
+                           float(np.mean(psnrs)), host_gb=_host_gb())
 
 
 def _save_eval_image(cfg, iteration, split, cam, img, gt):

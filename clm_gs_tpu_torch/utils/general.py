@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -19,6 +20,20 @@ def check_device(device) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return device
+
+
+def nvidia_smi() -> Optional[str]:
+    """The card's name and power limit as `nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader` prints them (first card), or None without it."""
+    import subprocess
+
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             check=False, timeout=60).stdout.strip().splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return out[0] if out else None
 
 
 def inverse_sigmoid(x):
@@ -39,6 +54,25 @@ def build_rotation(q):
         [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], dim=-1
     )
     return torch.stack([r0, r1, r2], dim=-2)
+
+
+def build_scaling_rotation(s, q):
+    """L = R(q) diag(s), (..., 3, 3); the covariance is L L^T."""
+    return build_rotation(q) * s[..., None, :]
+
+
+def quat_normalize(q):
+    return q / (torch.linalg.norm(q, dim=-1, keepdim=True) + 1e-12)
+
+
+def strip_symmetric(cov):
+    """(..., 3, 3) symmetric -> (..., 6) [xx, xy, xz, yy, yz, zz]."""
+    return torch.stack([cov[..., 0, 0], cov[..., 0, 1], cov[..., 0, 2],
+                        cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2]], dim=-1)
+
+
+def np_sigmoid(x):
+    return 1.0 / (1.0 + np.exp(-x))
 
 
 def psnr(img, gt):

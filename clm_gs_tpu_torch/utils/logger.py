@@ -35,9 +35,12 @@ class RunLogger:
 
     # -- log2csv-compatible lines (release_scripts/log2csv.py:28-108) --
 
-    def eval_result(self, iteration: int, name: str, l1: float, psnr: float):
+    def eval_result(self, iteration: int, name: str, l1: float, psnr: float,
+                    host_gb: float):
+        """The eval line; its event also carries the process's RSS (GiB)."""
         self.write(f"[ITER {iteration}] Evaluating {name}: L1 {l1} PSNR {psnr}")
-        self.event("eval", iteration=iteration, split=name, l1=l1, psnr=psnr)
+        self.event("eval", iteration=iteration, split=name, l1=l1, psnr=psnr,
+                   host_gb=host_gb)
 
     def densify_report(
         self, it_lo: int, it_hi: int, num_3dgs: int, hbm_gb: float, host_gb: float

@@ -1,6 +1,6 @@
 """Minimal PLY vertex reader, binary little-endian and ascii
-(clm_gs_tpu/utils/plyio.py; the port's own copy of its reader). Gaussian
-model PLYs use the schema code in models/gaussians.py."""
+and a point-cloud writer (clm_gs_tpu/utils/plyio.py; the port's own copy).
+Gaussian model PLYs use the schema code in models/gaussians.py."""
 
 from __future__ import annotations
 
@@ -65,3 +65,23 @@ def read_ply_vertices(path):
             )
             return {name: np.ascontiguousarray(arr[name]) for name, _ in props}
     raise ValueError(f"unsupported PLY format {fmt}")
+
+
+def write_ply_points(path, points, colors=None):
+    """Write an xyz (+ rgb in [0, 1], stored as uchar) point cloud."""
+    n = len(points)
+    props = ["property float x", "property float y", "property float z"]
+    dtype = [("x", "<f4"), ("y", "<f4"), ("z", "<f4")]
+    if colors is not None:
+        props += ["property uchar red", "property uchar green", "property uchar blue"]
+        dtype += [("red", "u1"), ("green", "u1"), ("blue", "u1")]
+    header = ("ply\nformat binary_little_endian 1.0\n"
+              f"element vertex {n}\n" + "\n".join(props) + "\nend_header\n")
+    arr = np.empty(n, dtype=dtype)
+    arr["x"], arr["y"], arr["z"] = points[:, 0], points[:, 1], points[:, 2]
+    if colors is not None:
+        rgb = np.clip(colors * 255.0, 0, 255).astype(np.uint8)
+        arr["red"], arr["green"], arr["blue"] = rgb[:, 0], rgb[:, 1], rgb[:, 2]
+    with open(path, "wb") as f:
+        f.write(header.encode("ascii"))
+        f.write(arr.tobytes())
