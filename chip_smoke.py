@@ -136,27 +136,35 @@ Phases, one JSON line each:
      seed 3; clm_gs_tpu_torch/utils/parity30k.py) trained under each of the
      three strategies, a process each, the three at once sharing the card,
      with its schedule cut to PARITY_ITERS iterations
-     (densification from 500, the first opacity reset at 3,000, an eval
-     every 1,000): each offload strategy's test PSNR within 0.5 dB of
+     (densification from 500, an eval every 1,000): each offload strategy's test PSNR within 0.5 dB of
      no_offload's at every eval, test PSNR rising from the first eval to
      the last, finite losses, every kernel launched, and the process's RSS
      at each eval.
  11. bigcity: the reference's BigCity regime at its 25M size
      (clm_gs_tpu_torch/utils/bigcity.py, each step a process of its own):
      `make` draws 25,000,000 city Gaussians, renders 64 cameras of 640x400
-     on the card and writes the degraded init PLY; `run` trains it with
-     BIGCITY_ARGS (bsz 64, --sparse_adam, no densification) for 256
+     on the card and writes the degraded init PLY (started before phase 7,
+     so that its host work overlaps phases 7-10b); `run` trains it with
+     BIGCITY_ARGS (bsz 64, --sparse_adam, no densification) for 128
      iterations under --clm_offload, a test eval at its end, then times
      one batch of the final state in situ against
      clm_offload.prepare_device_loop's replay (the card's share), and
-     under --no_offload. Gates: finite losses, clm's test PSNR above the
-     init's and within 0.5 dB of no_offload's, clm's peak device memory
-     below no_offload's, the host state 768 bytes a row, the load's host
+     under --no_offload; each run's peak device memory split by stage
+     (`peak_by_stage`: set-up, the loop, the clm filters, order, micro
+     loop and Adam tail, eval, the end). Gates: finite losses, clm's test
+     PSNR above the init's and within 0.5 dB of no_offload's, clm's peak
+     device memory below no_offload's and at most 198 bytes a row of the
+     capacity and 1.5 GiB, the host state 768 bytes a row, the load's host
      peak within the host state plus 2 GiB, the replay's last loss equal to
-     the in-situ batch's to the bit, every kernel launched; then each
-     kernel against its plain version on the first training camera's
-     visible rows. The summary and kernels lines follow it.
-Any failed check exits 1. The last line is the device summary. Without CUDA,
+     the in-situ batch's to the bit, every kernel launched; then, on the
+     init PLY's state, the in-place Adam tail bit-equal to adam_step on a
+     slice of 6M rows, the row-chunked filters' ids, counts and sample
+     equal to the unchunked pass for two cameras, and each kernel against
+     its plain version on the first training camera's visible rows. The
+     summary and kernels lines follow it.
+The summary line also gives each phase's seconds (`phase_s`) and the
+script's (`total_s`). Any failed check exits 1. The last line is the device
+summary. Without CUDA,
 or without the package beside it, the script exits 1 and prints no result.
 """
 
@@ -338,6 +346,15 @@ def time_ms(torch, fn, reps=10, warmup=2):
 def run(torch, report):
     from clm_gs_tpu_torch import _build
 
+    # each phase's seconds, from the end of the one before
+    phase_s = report["phase_s"] = {}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = now - clock[0]
+        clock[0] = now
+
     # 1. device and build
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -360,79 +377,62 @@ def run(torch, report):
     emit({"phase": "device", "build_s": round(build_s, 3),
           "built": sorted(ptxas), "host_build_s": round(host_build_s, 3),
           "host_built": ["cpu_adam", "fast_tsp"]})
+    lap("device")
 
     # 2. kernels against plain versions at a mid size, and against the oracle
     mid = kernel_checks(torch, n=20_000, w=640, h=480, reps=5)
     mid["oracle"] = oracle_check(torch)
     report["kernels_mid"] = mid
     emit({"phase": "kernels_mid", **mid})
+    lap("kernels_mid")
 
     # 3. train_step: kernel path on the card against plain path on the CPU
     report["train_step_mid"] = train_step_check(torch)
     emit(report["train_step_mid"])
+    lap("train_step_mid")
 
     # 4. full width
     scene, report["full"], step_args = full_width(torch)
     emit(report["full"])
+    lap("full")
 
     # 5. kernels at the full-width shapes
     full = kernel_checks(torch, reps=10, scene=scene)
     report["kernels_full"] = full
+    lap("kernels_full")
 
     # 6. naive_offload's batch on the same scene, which it takes over
     box = [scene]
     del scene
     report["naive_step"] = naive_step(torch, box, *step_args)
     emit(report["naive_step"])
+    lap("naive_step")
     torch.cuda.empty_cache()
     report["clm_step"] = clm_step(torch, box, *step_args)
     emit(report["clm_step"])
+    lap("clm_step")
     box.clear()
     torch.cuda.empty_cache()
     report["mesh_step"] = mesh_step(torch)
     emit(report["mesh_step"])
+    lap("mesh_step")
     torch.cuda.empty_cache()
     report["clm_mesh_step"] = clm_mesh_step(torch)
     emit(report["clm_mesh_step"])
+    lap("clm_mesh_step")
     torch.cuda.empty_cache()
     report["bench4k"] = bench4k_run(torch)
     emit(report["bench4k"])
+    lap("bench4k")
     torch.cuda.empty_cache()
 
-    # 7. and 8. the training CLI under no_offload and naive_offload on one
-    # synthetic COLMAP scene at full width, written and decoded once
-    from clm_gs_tpu_torch.utils.synthetic_colmap import make_dataset
-
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as work:
-        t0 = time.perf_counter()
-        colmap = make_dataset(f"{work}/scene", full=True)
-        scene_s = time.perf_counter() - t0
-        report["cli"] = cli_run(torch, work, colmap)
-        report["cli"]["scene_s"] = scene_s
-        emit(report["cli"])
-        torch.cuda.empty_cache()
-        report["naive"] = naive_cli_run(torch, work, colmap, report["cli"])
-        emit(report["naive"])
-        torch.cuda.empty_cache()
-        report["clm"] = clm_cli_run(torch, work, colmap, report["cli"], report["naive"])
-        emit(report["clm"])
-        torch.cuda.empty_cache()
-        report["mesh"] = mesh_cli_run(torch, work, colmap, report["cli"])
-        emit(report["mesh"])
-        torch.cuda.empty_cache()
-        report["clm_mesh"] = clm_mesh_cli_run(torch, work, colmap, report["clm"])
-        emit(report["clm_mesh"])
-        torch.cuda.empty_cache()
-        report["trajectory"] = trajectory_run(torch, work, colmap)
-        emit(report["trajectory"])
-    torch.cuda.empty_cache()
-    report["parity"] = parity_run(torch)
-    emit(report["parity"])
-    torch.cuda.empty_cache()
-
-    # 11. the BigCity regime on one card
-    report["bigcity"] = bigcity_run(torch)
-    emit(report["bigcity"])
+    # 11.'s scene, made by a process of its own while phases 7-10b run
+    city = bigcity_start()
+    try:
+        cli_phases(torch, report, lap, city)
+    finally:
+        bigcity_stop(city)
+    lap("bigcity")
 
     emit(summary(report))
     launches = report["full"]["launches"]
@@ -486,13 +486,53 @@ def run(torch, report):
     ]})
 
 
+def cli_phases(torch, report, lap, city):
+    """Phases 7-11 into `report`, `lap(name)` after each: 7.-10. the
+    training CLI and the renderer on one synthetic COLMAP scene at full
+    width, written and decoded once, 10b. parity, 11. bigcity on the scene
+    of the started make `city`."""
+    from clm_gs_tpu_torch.utils.synthetic_colmap import make_dataset
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as work:
+        t0 = time.perf_counter()
+        colmap = make_dataset(f"{work}/scene", full=True)
+        scene_s = time.perf_counter() - t0
+        report["cli"] = cli_run(torch, work, colmap)
+        report["cli"]["scene_s"] = scene_s
+        emit(report["cli"])
+        lap("cli")
+        for name, fn, args in (
+                ("naive", naive_cli_run, ("cli",)),
+                ("clm", clm_cli_run, ("cli", "naive")),
+                ("mesh", mesh_cli_run, ("cli",)),
+                ("clm_mesh", clm_mesh_cli_run, ("clm",))):
+            torch.cuda.empty_cache()
+            report[name] = fn(torch, work, colmap, *(report[a] for a in args))
+            emit(report[name])
+            lap(name)
+        torch.cuda.empty_cache()
+        report["trajectory"] = trajectory_run(torch, work, colmap)
+        emit(report["trajectory"])
+        lap("trajectory")
+    torch.cuda.empty_cache()
+    report["parity"] = parity_run(torch)
+    emit(report["parity"])
+    lap("parity")
+    torch.cuda.empty_cache()
+
+    # 11. the BigCity regime on one card
+    report["bigcity"] = bigcity_run(torch, city)
+    emit(report["bigcity"])
+
+
 def summary(report):
     """The numbers of the long phase lines that a reader compares across
     calls, on one short line near the end of the output."""
     step = report["clm_step"]
     runs = step["runs"]
     clm = report["clm"]
-    return {"phase": "summary", "clm_step": {
+    return {"phase": "summary", "phase_s": report["phase_s"],
+            "total_s": sum(report["phase_s"].values()), "clm_step": {
         "warm_batch_s": {k: r["warm"]["batch_s"] for k, r in runs.items()},
         "warm_batches_s": {k: r["warm"]["warm_batches_s"] for k, r in runs.items()},
         "timed_batch_s": {k: r["timed"]["batch_s"] for k, r in runs.items()},
@@ -869,6 +909,19 @@ def _to(torch, obj, device):
                             for f in dataclasses.fields(obj)})
     if isinstance(obj, dict):
         return {k: _to(torch, v, device) for k, v in obj.items()}
+    return obj
+
+
+def _clone(torch, obj):
+    """A copy of a state or moments with every tensor cloned: clm's batch
+    updates the ones it is given in place (its donation contract)."""
+    import dataclasses
+
+    if torch.is_tensor(obj):
+        return obj.clone()
+    if dataclasses.is_dataclass(obj):
+        return type(obj)(**{f.name: _clone(torch, getattr(obj, f.name))
+                            for f in dataclasses.fields(obj)})
     return obj
 
 
@@ -1525,7 +1578,8 @@ def clm_step(torch, box, lrs, adam_cfg):
         return out
 
     def batch(cfg, ctx, timed):
-        """One batch from the seeded start, the context reset to it."""
+        """One batch from the seeded start (the state and moments cloned),
+        the context reset to it."""
         arriving.clear()
         ctx.sh_host.copy_(p0["sh"])
         ctx.sh_grad_host.zero_()
@@ -1534,11 +1588,12 @@ def clm_step(torch, box, lrs, adam_cfg):
         ctx.trailing_s = ctx.scatter_work_s = ctx.adam_work_s = 0.0
         ctx.n_batches = ctx.h2d_bytes = ctx.d2h_bytes = 0
         timers = Timer(enabled=timed)
+        s1, o1 = _clone(torch, s), _clone(torch, o)  # the batch updates them in place
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launches()
         t0 = time.perf_counter()
-        s2, o2, ctx, out = clm.train_one_batch(s, o, ctx, cb, gts, 3, host_lrs,
+        s2, o2, ctx, out = clm.train_one_batch(s1, o1, ctx, cb, gts, 3, host_lrs,
                                                adam_cfg, bg, w, h, cfg, timers=timers)
         losses = torch.sort(out.losses.cpu()).values
         torch.cuda.synchronize()
@@ -1782,8 +1837,9 @@ def clm_cli_run(torch, work, scene, cli, naive):
 
     ply = Path(out, "point_cloud", "iteration_200", "point_cloud.ply")
     back = G.load_ply(str(ply), device=state.alive.device)
+    # the run returns its SH field as the host buffer (`materialize_host`)
     ply_equal = all(torch.equal(getattr(back.params, f)[back.alive],
-                                getattr(state.params, f)[state.alive])
+                                getattr(state.params, f).cuda()[state.alive])
                     for f in GROUPS)
     ply_rows, n_end, cap_end = back.n_alive, state.n_alive, state.capacity
     placeholder = [tuple(opt.mu.sh.shape), tuple(opt.nu.sh.shape)]
@@ -2158,7 +2214,8 @@ def clm_mesh_rank_check(torch, shape, time_single):
 
     def start(pinned, on_mesh):
         """A context at the seeded start (cut to the rank's shard on the
-        mesh), and the stripped state and card moments to give it."""
+        mesh), and a copy of the stripped state and card moments to give
+        it."""
         cfg = Config()
         cfg.aux.clm_offload = True
         cfg.tpu.pinned_host = pinned
@@ -2166,10 +2223,11 @@ def clm_mesh_rank_check(torch, shape, time_single):
         ctx = clm.make_context(cfg, state, adam_cfg)
         ctx.adam.exp_avg, ctx.adam.exp_avg_sq = sh_mu0.clone(), sh_nu0.clone()
         ctx.adam.step_count = int(opt.steps)
+        st, op = _clone(torch, s0), _clone(torch, o0)  # a batch updates them in place
         if not on_mesh:
-            return cfg, ctx, s0, o0
+            return cfg, ctx, st, op
         clm.shard_context(ctx, mesh)
-        return cfg, ctx, M.shard_state(s0, mesh), M.shard_capacity_tree(o0, mesh, C)
+        return cfg, ctx, M.shard_state(st, mesh), M.shard_capacity_tree(op, mesh, C)
 
     def batch(cfg, ctx, st, op):
         s2, o2, ctx, out = clm.train_one_batch(st, op, ctx, cb, gts, 3, host_lrs,
@@ -2395,8 +2453,10 @@ def clm_mesh_cli_run(torch, work, scene, clm_run):
 
     ply = Path(out, "point_cloud", "iteration_200", "point_cloud.ply")
     back = G.load_ply(str(ply), device=state.alive.device)
+    # the run returns its SH field as the host buffer (`materialize_host`)
     ply_equal = all(torch.equal(getattr(back.params, f)[back.alive],
-                                getattr(state.params, f)[state.alive]) for f in GROUPS)
+                                getattr(state.params, f).cuda()[state.alive])
+                    for f in GROUPS)
     ply_rows, n_end, cap_end = back.n_alive, state.n_alive, state.capacity
     placeholder = [tuple(opt.mu.sh.shape), tuple(opt.nu.sh.shape)]
     del back, state, opt
@@ -2678,8 +2738,9 @@ def bench4k_run(torch):
 
 
 # The parity phase: the parity schedule cut to PARITY_ITERS iterations (the
-# densification from 500 and the first opacity reset at 3,000 kept)
-PARITY_ITERS = 4000
+# densification from 500 kept, two evals; the opacity reset at 3,000 runs in
+# the full parity run, utils/parity30k.py)
+PARITY_ITERS = 2000
 PARITY_PSNR_DB = 0.5
 
 
@@ -2738,15 +2799,72 @@ def parity_run(torch, iters=PARITY_ITERS):
 
 
 # The bigcity phase: the reference's BigCity-25M size (SURVEY.md:525), 64
-# cameras of 640x400, BIGCITY_ARGS for 4 batches of 64
+# cameras of 640x400, BIGCITY_ARGS for 2 batches of 64
 BIGCITY_N = 25_000_000
-BIGCITY_ITERS = 256
-# each run's extra flags: the spans, and no final PLY (a save gathers the
-# whole model on the host)
+BIGCITY_ITERS = 128
+# each run's extra flags: the spans, and no final PLY (6 GB of disk and
+# time; the 102M run outside the script saves one)
 BIGCITY_EXTRA = ["--enable_timer", "--do_not_save"]
+# clm's peak device bytes at most BIGCITY_ROW_BYTES a row of the capacity
+# and BIGCITY_WORKING_SET: the resident state (the four card groups, their
+# two moments, alive and the three statistics: 145 bytes a row) and a
+# batch's accumulators (53), and a bounded working set (the filters' and
+# the tail's row chunks, a camera's compact set, the ground truth)
+BIGCITY_ROW_BYTES = 198
+BIGCITY_WORKING_SET = 1.5 * 2**30
+# rows of the 25M state the in-place tail is held to `adam_step` on (more
+# than one chunk of `optim.ADAM_CHUNK_ROWS`)
+BIGCITY_TAIL_ROWS = 6_000_000
 # the load's host peak over the host buffers it builds (the streaming loader
 # holds one chunk of rows beside them)
 BIGCITY_LOAD_SLACK = 2 * 2**30
+
+
+def bigcity_start():
+    """`bigcity make` of the BIGCITY_N scene started in a process of its own,
+    its output in files of a new work directory; `bigcity_run` waits for it
+    and `bigcity_stop` ends it and removes the directory."""
+    from pathlib import Path
+
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_bigcity_")
+    out = open(f"{work.name}/make.out", "w")
+    err = open(f"{work.name}/make.err", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "clm_gs_tpu_torch.utils.bigcity", "make",
+         f"{work.name}/scene", "--n", str(BIGCITY_N)],
+        cwd=Path(__file__).resolve().parent, stdout=out, stderr=err)
+    return {"work": work, "proc": proc, "files": (out, err), "t0": time.perf_counter(),
+            "disk_free_bytes": shutil.disk_usage(work.name).free}
+
+
+def bigcity_stop(city):
+    if city["proc"].poll() is None:
+        city["proc"].kill()
+        city["proc"].wait()
+    for f in city["files"]:
+        f.close()
+    city["work"].cleanup()
+
+
+def _bigcity_make_wait(city, timeout):
+    """The started make's JSON line, with `s` its own seconds and `wait_s`
+    the seconds the caller waited for it; a failure or more than `timeout`
+    seconds from its start is a failed check."""
+    t0 = time.perf_counter()
+    try:
+        rc = city["proc"].wait(timeout=max(1.0, timeout - (t0 - city["t0"])))
+    except subprocess.TimeoutExpired:
+        rc = None
+    wait_s = time.perf_counter() - t0
+    for f in city["files"]:
+        f.flush()
+    out, err = (open(f.name).read() for f in city["files"])
+    if rc != 0:
+        print(out[-4000:], err[-4000:], file=sys.stderr)
+    check(rc == 0, f"bigcity make: rc {rc}")
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    rec = json.loads(lines[-1])
+    return rec | {"s": rec["total_s"], "wait_s": wait_s}
 
 
 def _bigcity_cli(root, args, timeout):
@@ -2764,15 +2882,118 @@ def _bigcity_cli(root, args, timeout):
     return json.loads(lines[-1]) | {"s": s}
 
 
+def _tail_check(torch, p, rows):
+    """`optim.adam_update_` (in place, in row chunks) against `adam_step` on
+    a cloned slice of `rows` rows of the card groups `p`, with seeded
+    moments and gradients, half the rows masked and the bigcity run's
+    betas: parameters, both moments and the step count bit-equal, the
+    storage kept; each one's time on the slice."""
+    from clm_gs_tpu_torch.models.gaussians import GaussianParams
+    from clm_gs_tpu_torch.optim import (ADAM_CHUNK_ROWS, AdamConfig, AdamState,
+                                        adam_step, adam_update_)
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def group(make):
+        return GaussianParams(*(make(getattr(p, f)[:rows]) for f in GROUPS[:4]),
+                              torch.zeros((1, SH_COLS), device="cuda"))
+
+    params = group(torch.clone)
+    grads = group(lambda t: 1e-3 * torch.randn(t.shape, generator=gen, device="cuda"))
+    opt = AdamState(group(lambda t: 1e-3 * torch.randn(t.shape, generator=gen,
+                                                       device="cuda")),
+                    group(lambda t: 1e-2 * torch.rand(t.shape, generator=gen,
+                                                      device="cuda")),
+                    torch.tensor(10.0, device="cuda"))
+    mask = torch.rand(rows, generator=gen, device="cuda") < 0.5
+    lrs = {f: torch.tensor(lr, device="cuda") for f, lr in (
+        ("xyz", 1.6e-6), ("opacity", 0.05), ("log_scale", 0.005), ("quat", 0.001))}
+    cfg = AdamConfig().scaled(64, "sqrt")
+    adam_update_(_clone(torch, params), grads, _clone(torch, opt), lrs, cfg, mask)  # warm
+    for _ in range(2):  # a warm-up, then the timed call
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref_p, ref_o = adam_step(params, grads, opt, lrs, cfg, mask)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    got_p, got_o = _clone(torch, params), _clone(torch, opt)
+    ptrs = [t.data_ptr() for t in got_p.astuple() + got_o.mu.astuple() + got_o.nu.astuple()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_p, out_o = adam_update_(got_p, grads, got_o, lrs, cfg, mask)
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - t0) * 1e3
+    equal = {f: all(torch.equal(getattr(a, f), getattr(b, f)) for a, b in (
+        (out_p, ref_p), (out_o.mu, ref_o.mu), (out_o.nu, ref_o.nu))) for f in GROUPS[:4]}
+    equal["steps"] = torch.equal(out_o.steps, ref_o.steps)
+    equal["storage_kept"] = (out_p is got_p and out_o is got_o and ptrs == [
+        t.data_ptr() for t in out_p.astuple() + out_o.mu.astuple() + out_o.nu.astuple()])
+    return {"rows": rows, "chunk_rows": ADAM_CHUNK_ROWS, "equal": equal,
+            "masked_rows": int(mask.sum()), "adam_step_ms": step_ms,
+            "adam_update_ms": update_ms}
+
+
+def _filter_check(torch, state, cb):
+    """`offload_common.calculate_filters` (row chunks of FILTER_CHUNK_ROWS,
+    the covariance once a chunk) against the unchunked pass it replaced
+    (`fully_fused_projection` over every row, a camera at a time) for each
+    camera of `cb`: ids, counts and the TSP sample equal; each one's time
+    (the second of two calls)."""
+    from clm_gs_tpu_torch.ops.projection import fully_fused_projection
+    from clm_gs_tpu_torch.strategies import offload_common as oc
+
+    p = state.params
+    w, h = cb.width, cb.height
+
+    def unchunked():
+        scales = torch.exp(p.log_scale)
+        ids, samples = [], []
+        for b in range(cb.viewmats.shape[0]):
+            vis = fully_fused_projection(p.xyz, p.quat, scales, cb.viewmats[b:b + 1],
+                                         cb.Ks[b:b + 1], w, h, radius_clip=0.0,
+                                         alive=state.alive).radii[0] > 0
+            ids.append(torch.nonzero(vis).flatten().to(torch.int32))
+            samples.append(vis[::oc.SAMPLE_STRIDE])
+        return ids, samples
+
+    ms = {}
+    for _ in range(2):
+        for name, fn in (("chunked", lambda: oc.calculate_filters(
+                p.xyz, p.quat, p.log_scale, state.alive, cb.viewmats, cb.Ks, w, h, 0.0)),
+                         ("unchunked", unchunked)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) * 1e3
+            if name == "chunked":
+                F = out
+            else:
+                ids, samples = out
+    return {"cameras": len(ids), "chunk_rows": oc.FILTER_CHUNK_ROWS,
+            "counts": F.counts.tolist(),
+            "equal": {"ids": all(torch.equal(a, b) for a, b in zip(F.ids, ids)),
+                      "counts": F.counts.tolist() == [len(i) for i in ids],
+                      "sample": torch.equal(F.sample, torch.stack(samples))},
+            "chunked_ms": ms["chunked"], "unchunked_ms": ms["unchunked"]}
+
+
 def _bigcity_kernels(torch, scene, cap):
-    """Each kernel against its plain version at the shapes the clm path gives
-    it: the visible rows of the first training camera, loaded from the init
-    PLY, against its ground truth."""
+    """On the init PLY's state: the in-place tail against `adam_step` on a
+    slice of it (`_tail_check`), the chunked filters against the unchunked
+    pass for the first two training cameras (`_filter_check`), then each
+    kernel against its plain version at the shapes the clm path gives it:
+    the visible rows of the first training camera against its ground
+    truth."""
     from clm_gs_tpu_torch.models import gaussians as G
     from clm_gs_tpu_torch.strategies import offload_common as oc
     from clm_gs_tpu_torch.utils.bigcity import INIT_PLY, _batch
 
     state = G.load_ply(f"{scene}/{INIT_PLY}", capacity=cap, device="cuda")
+    tail = _tail_check(torch, state.params, BIGCITY_TAIL_ROWS)
+    torch.cuda.empty_cache()
+    filters = _filter_check(torch, state, _batch(scene, 2, 8, "cuda")[0])
+    torch.cuda.empty_cache()
     cb, gt, names = _batch(scene, 1, 8, "cuda")
     p = state.params
     F = oc.calculate_filters(p.xyz, p.quat, p.log_scale, state.alive, cb.viewmats,
@@ -2788,42 +3009,45 @@ def _bigcity_kernels(torch, scene, cap):
     out = kernel_checks(torch, scene=(cstate, cb, gt, torch.zeros(3, device="cuda")),
                         timed=False)
     out["shape"]["camera"] = names[0]
-    return out
+    return out, tail, filters
 
 
-def bigcity_run(torch):
-    """The BigCity regime at BIGCITY_N Gaussians: `bigcity make`, then
+def bigcity_run(torch, city):
+    """The BigCity regime at BIGCITY_N Gaussians: `bigcity make` (started
+    by `bigcity_start`, handle `city`), then
     `bigcity run` under --clm_offload with --device_loop and under
     --no_offload (each a process of its own, so that its peak RSS is its
     own), then each kernel against its plain version at the clm path's
     shapes. Gates: finite losses; clm's final test PSNR above the degraded
     init's and within BIGCITY_PSNR_DB of no_offload's; clm's peak device
-    memory below no_offload's; the clm host state 768 bytes a row of the
-    capacity; the load's host peak (the run's RSS sampled through its
+    memory below no_offload's and at most BIGCITY_ROW_BYTES a row of the
+    capacity and BIGCITY_WORKING_SET; the clm host state 768 bytes a row of
+    the capacity; the load's host peak (the run's RSS sampled through its
     set-up less its RSS before the run) within the host state plus
     BIGCITY_LOAD_SLACK; the replay's last loss equal to the in-situ
     batch's to the bit (the same forward kernels on the same rows in the
-    same order); every kernel of the path launched."""
+    same order); every kernel of the path launched; the in-place tail and
+    the chunked filters equal to the forms they replaced."""
     from pathlib import Path
 
     from clm_gs_tpu_torch.utils.bigcity import capacity_for
 
     root = Path(__file__).resolve().parent
     cap = capacity_for(BIGCITY_N)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_bigcity_") as work:
-        scene = f"{work}/scene"
-        free = shutil.disk_usage(work).free
-        make = _bigcity_cli(root, ["make", scene, "--n", str(BIGCITY_N)], 900)
-        runs = {}
-        for name, flags in (("clm", ["--device_loop"]), ("no_offload", ["--no_offload"])):
-            runs[name] = _bigcity_cli(
-                root, ["run", scene, f"{work}/{name}", "--iters", str(BIGCITY_ITERS),
-                       *flags, "--", *BIGCITY_EXTRA], 900)
-            torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        kernels = _bigcity_kernels(torch, scene, cap)
-        kernels["s"] = time.perf_counter() - t0
+    work = city["work"].name
+    scene = f"{work}/scene"
+    free = city["disk_free_bytes"]
+    make = _bigcity_make_wait(city, 900)
+    runs = {}
+    for name, flags in (("clm", ["--device_loop"]), ("no_offload", ["--no_offload"])):
+        runs[name] = _bigcity_cli(
+            root, ["run", scene, f"{work}/{name}", "--iters", str(BIGCITY_ITERS),
+                   *flags, "--", *BIGCITY_EXTRA], 900)
         torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernels, tail, filters = _bigcity_kernels(torch, scene, cap)
+    kernels["s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
     clm, no = runs["clm"], runs["no_offload"]
     loop = clm["device_loop"]
     psnr = {k: [e["psnr"] for e in r["final_eval"] if e["split"] == "test"]
@@ -2833,7 +3057,7 @@ def bigcity_run(torch):
     result = {
         "phase": "bigcity", "n": BIGCITY_N, "capacity": cap, "iterations": BIGCITY_ITERS,
         "disk_free_bytes": free,
-        "make": {k: make[k] for k in ("s", "gaussians_s", "render_s", "ply_s",
+        "make": {k: make[k] for k in ("s", "wait_s", "gaussians_s", "render_s", "ply_s",
                                       "init_test_psnr", "gt_isects", "gt_launches")},
         "init_test_psnr": make["init_test_psnr"], "final_test_psnr": psnr,
         "it_per_s": {k: (r["end2end"] or {}).get("it_per_s") for k, r in runs.items()},
@@ -2841,6 +3065,8 @@ def bigcity_run(torch):
                         for k, r in runs.items()},
         "losses": {k: [v["loss"] for v in r["losses"]] for k, r in runs.items()},
         "peak_device_bytes": {k: r["peak_device_bytes"] for k, r in runs.items()},
+        "clm_peak_limit_bytes": BIGCITY_ROW_BYTES * cap + BIGCITY_WORKING_SET,
+        "peak_by_stage": {k: r["peak_by_stage"] for k, r in runs.items()},
         "log_device_peak_gb": {k: r["device_peak_gb_max"] for k, r in runs.items()},
         # RSS sampled through each run (the kernel's peak of a process that
         # this large one starts begins at this one's: `peak_rss_bytes`)
@@ -2855,7 +3081,7 @@ def bigcity_run(torch):
                                            - clm["clm_host_state_bytes"]),
         "clm_spans_ms_per_call": spans, "clm_overlap": clm["overlap_last"],
         "run_s": {k: r["s"] for k, r in runs.items()},
-        "device_loop": loop,
+        "device_loop": loop, "in_place_tail": tail, "chunked_filters": filters,
         "launches": {"make": make["gt_launches"], "clm": clm["launches"],
                      "no_offload": no["launches"]},
         "kernels": kernels,
@@ -2874,6 +3100,14 @@ def bigcity_run(torch):
     check(clm["peak_device_bytes"] < no["peak_device_bytes"],
           f"bigcity: clm's peak {clm['peak_device_bytes']} not below no_offload's "
           f"{no['peak_device_bytes']}")
+    check(clm["peak_device_bytes"] <= result["clm_peak_limit_bytes"],
+          f"bigcity: clm's peak {clm['peak_device_bytes']} above {BIGCITY_ROW_BYTES} "
+          f"bytes a row of {cap} and {BIGCITY_WORKING_SET} (by stage: "
+          f"{clm['peak_by_stage']})")
+    check(all(tail["equal"].values()),
+          f"bigcity: the in-place tail against adam_step: {tail['equal']}")
+    check(all(filters["equal"].values()),
+          f"bigcity: the chunked filters against the unchunked pass: {filters['equal']}")
     check(clm["capacity"] == cap and clm["clm_host_state_bytes"] == 768 * cap,
           f"bigcity: host state {clm['clm_host_state_bytes']} at capacity {clm['capacity']}")
     check(result["load_rss_over_host_state_bytes"] <= BIGCITY_LOAD_SLACK,

@@ -208,13 +208,15 @@ PLY_PROPS = (
     + [f"scale_{i}" for i in range(3)]
     + [f"rot_{i}" for i in range(4)]
 )
+# rows of the capacity a block of the streaming PLY writer (`save_ply`)
+PLY_BLOCK_ROWS = 1 << 20
 
 
-def _compact(state: GaussianState) -> dict:
-    """Live rows gathered to the front, as host numpy arrays. A field may
-    lie on the host while the others are on the card (clm_offload's
-    `materialize_host`)."""
-    idx = torch.nonzero(state.alive).flatten()
+def _compact(state: GaussianState, lo: int = 0, hi: Optional[int] = None) -> dict:
+    """The live rows among rows [lo, hi) of the capacity (all by default)
+    gathered to the front, as host numpy arrays. A field may lie on the host
+    while the others are on the card (clm_offload's `materialize_host`)."""
+    idx = torch.nonzero(state.alive[lo:hi]).flatten() + lo
     out = {}
     for f in PARAM_FIELDS:
         t = getattr(state.params, f)
@@ -222,38 +224,63 @@ def _compact(state: GaussianState) -> dict:
     return out
 
 
-def save_ply(state: GaussianState, path: str, chunk_rows: Optional[int] = None):
-    """Binary little-endian PLY of the live rows. With `chunk_rows`, writes
-    `<stem>_rk{i}_ws{n}.ply` files of at most that many rows each."""
-    d = _compact(state)
+def _ply_columns(d: dict) -> np.ndarray:
+    """(n, 62) little-endian float32 rows of the PLY schema from the
+    numpy fields of `_compact`'s layout."""
     n = len(d["xyz"])
     # f_rest is channel-major: f_rest_{c*15+j} = sh (16, 3) row j+1, channel c
     rest = d["sh"][:, 3:].reshape(n, 15, 3).transpose(0, 2, 1).reshape(n, 45)
-    cols = np.concatenate(
+    return np.concatenate(
         [d["xyz"], np.zeros((n, 3), np.float32), d["sh"][:, 0:3], rest,
          d["opacity"][:, None], d["log_scale"], d["quat"]],
         axis=1,
     ).astype("<f4")
 
-    def write_one(path, rows):
-        header = (
-            "ply\nformat binary_little_endian 1.0\n"
-            f"element vertex {len(rows)}\n"
-            + "".join(f"property float {p}\n" for p in PLY_PROPS)
-            + "end_header\n"
-        )
-        with open(path, "wb") as f:
-            f.write(header.encode("ascii"))
-            f.write(rows.tobytes())
 
+def _ply_blocks(state: GaussianState, block_rows: int):
+    """The live rows in order as `_ply_columns` blocks, each gathered from
+    `block_rows` rows of the capacity (so at most that many live rows) on
+    whatever device each field lies."""
+    for lo in range(0, state.alive.shape[0], block_rows):
+        yield _ply_columns(_compact(state, lo, lo + block_rows))
+
+
+def _ply_header(n: int) -> bytes:
+    return ("ply\nformat binary_little_endian 1.0\n"
+            f"element vertex {n}\n"
+            + "".join(f"property float {p}\n" for p in PLY_PROPS)
+            + "end_header\n").encode("ascii")
+
+
+def save_ply(state: GaussianState, path: str, chunk_rows: Optional[int] = None,
+             block_rows: int = PLY_BLOCK_ROWS):
+    """Binary little-endian PLY of the live rows. With `chunk_rows`, writes
+    `<stem>_rk{i}_ws{n}.ply` files of at most that many rows each. Streams:
+    the live rows are gathered and written a block of `block_rows` rows of
+    the capacity at a time, straight from the state's fields (a field may
+    lie on the host while the others are on the card: clm_offload's
+    `materialize_host`), so the host holds one block (62 floats a row), never
+    the whole table."""
+    n = int(state.alive.sum())
     if chunk_rows is None or n <= chunk_rows:
-        write_one(path, cols)
-        return
-    ws = math.ceil(n / chunk_rows)
-    stem = path[:-4] if path.endswith(".ply") else path
-    for i in range(ws):
-        write_one(f"{stem}_rk{i}_ws{ws}.ply",
-                  cols[i * chunk_rows:(i + 1) * chunk_rows])
+        files = [(path, n)]
+    else:
+        ws = math.ceil(n / chunk_rows)
+        stem = path[:-4] if path.endswith(".ply") else path
+        files = [(f"{stem}_rk{i}_ws{ws}.ply", min(chunk_rows, n - i * chunk_rows))
+                 for i in range(ws)]
+    blocks = _ply_blocks(state, block_rows)
+    rest = np.empty((0, len(PLY_PROPS)), "<f4")  # the current block's unwritten rows
+    for name, rows in files:
+        with open(name, "wb") as f:
+            f.write(_ply_header(rows))
+            while rows:
+                if not len(rest):
+                    rest = next(blocks)
+                take = rest[:rows]
+                f.write(take.data)
+                rows -= len(take)
+                rest = rest[len(take):]
 
 
 def _model_ply_header(path: str):

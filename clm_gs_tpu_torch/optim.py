@@ -4,7 +4,8 @@ Per-group learning rates (the sh group per column: dc at feature_lr, rest at
 feature_lr/20), eps 1e-15, betas (0.9, 0.999), an optional selective mode
 (rows outside ``update_mask`` keep params and moments) and the reference's
 batch-size scaling rules. ``adam_step`` is functional: it returns new tensors
-and leaves its inputs untouched.
+and leaves its inputs untouched. ``adam_update_`` is the same step in place,
+over row chunks (clm_offload's tail).
 """
 
 from __future__ import annotations
@@ -15,6 +16,10 @@ from typing import Dict
 import torch
 
 from clm_gs_tpu_torch.models.gaussians import PARAM_FIELDS, GaussianParams
+
+# rows a chunk of `adam_update_`: its temporaries are ~10 chunk-sized
+# columns of up to 4 floats (~0.35 GB)
+ADAM_CHUNK_ROWS = 1 << 21
 
 
 @dataclass(frozen=True)
@@ -104,6 +109,49 @@ def adam_step(
         AdamState(mu=GaussianParams(**new_m), nu=GaussianParams(**new_v),
                   steps=steps),
     )
+
+
+@torch.no_grad()
+def adam_update_(
+    params: GaussianParams,
+    grads: GaussianParams,
+    state: AdamState,
+    lrs: Dict[str, torch.Tensor],
+    cfg: AdamConfig,
+    update_mask: torch.Tensor,
+    chunk_rows: int = ADAM_CHUNK_ROWS,
+):
+    """`adam_step` in place: the parameters, both moments and `steps` are
+    updated in their own storage, `chunk_rows` rows at a time, so that the
+    step's temporaries are a chunk's (clm_offload's donated tail, the JAX
+    package's `_adam_tail`). Returns (params, state), the objects given.
+    Bit-equal to `adam_step`: each chunk evaluates its expressions in the
+    same order (no fused multiply-adds, no `addcmul_`, `lerp_` or
+    `_foreach`), and the masked rows are left as they were."""
+    b1, b2 = cfg.betas
+    state.steps.add_(1.0)
+    bc1 = torch.clamp_min(1.0 - torch.pow(b1, state.steps), 1e-30)
+    bc2 = torch.clamp_min(1.0 - torch.pow(b2, state.steps), 1e-30)
+    C = update_mask.shape[0]
+    for name in PARAM_FIELDS:
+        if name not in lrs:
+            continue
+        p = getattr(params, name)
+        m = getattr(state.mu, name)
+        v = getattr(state.nu, name)
+        g = getattr(grads, name)
+        lr = lrs[name]
+        for lo in range(0, C, chunk_rows):
+            hi = min(lo + chunk_rows, C)
+            pc, mc, vc, gc = p[lo:hi], m[lo:hi], v[lo:hi], g[lo:hi]
+            maskb = update_mask[lo:hi].reshape((hi - lo,) + (1,) * (p.ndim - 1))
+            m_new = torch.where(maskb, b1 * mc + (1 - b1) * gc, mc)
+            v_new = torch.where(maskb, b2 * vc + (1 - b2) * gc * gc, vc)
+            step = lr * (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
+            pc.copy_(torch.where(maskb, pc - step, pc))
+            mc.copy_(m_new)
+            vc.copy_(v_new)
+    return params, state
 
 
 def _zero_where(x, mask):

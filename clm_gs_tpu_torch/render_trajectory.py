@@ -230,7 +230,6 @@ def make_renderer(args, state, host_sh, device):
     None). The caller closes the context."""
     from clm_gs_tpu_torch.config import Config
     from clm_gs_tpu_torch.data.cameras import intrinsics_from_fov
-    from clm_gs_tpu_torch.optim import AdamConfig
     from clm_gs_tpu_torch.strategies import clm_offload, no_offload
 
     W, H = args.width, args.height
@@ -242,12 +241,13 @@ def make_renderer(args, state, host_sh, device):
     if not args.clm_offload:
         return (lambda vm, c2w: no_offload.eval_one_cam(
             state, vm, K, c2w, args.sh_degree, bg, W, H)[0]), None
-    # the compact path: only each frame's visible SH rows reach the device
+    # the compact path: only each frame's visible SH rows reach the device;
+    # the context holds no gradients and no moments (adam_cfg None)
     if host_sh is not None:
-        ctx = clm_offload.make_context_from_host(Config(), host_sh, AdamConfig(), device)
+        ctx = clm_offload.make_context_from_host(Config(), host_sh, None, device)
         state_r = state  # it carries the (1, 48) placeholder already
     else:
-        ctx = clm_offload.make_context(Config(), state, AdamConfig())
+        ctx = clm_offload.make_context(Config(), state, None)
         state_r = clm_offload.strip_device_sh(state)
     return (lambda vm, c2w: clm_offload.eval_one_cam(
         (state_r, ctx), vm, K, c2w, args.sh_degree, bg, W, H)[0]), ctx

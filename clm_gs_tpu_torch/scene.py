@@ -108,23 +108,13 @@ class Scene:
         )
 
     def save(self, iteration: int, logger=None):
-        """PLY export; split into chunks when 16 * n * 59 * 4 bytes exceed
-        the available host memory (the reference's heuristic)."""
+        """PLY export, one file at any size: `save_ply` streams blocks of
+        rows, so the host holds one block, not the table (the reference
+        splits the file by its available host memory instead)."""
         out_dir = os.path.join(self.cfg.model.model_path, "point_cloud",
                                f"iteration_{iteration}")
         os.makedirs(out_dir, exist_ok=True)
-        n = self.gaussians.n_alive
-        try:
-            import psutil
-
-            avail = psutil.virtual_memory().available
-        except ImportError:
-            avail = 1 << 40
-        chunk = None
-        if 16 * n * 59 * 4 > avail:
-            chunk = max(1, avail // (16 * 59 * 4 * 2))
-        G.save_ply(self.gaussians, os.path.join(out_dir, "point_cloud.ply"),
-                   chunk_rows=chunk)
+        G.save_ply(self.gaussians, os.path.join(out_dir, "point_cloud.ply"))
         if self.cfg.debug.save_tensors:
             G.save_tensors(self.gaussians, os.path.join(out_dir, "tensors.npz"))
 

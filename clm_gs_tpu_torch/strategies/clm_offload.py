@@ -18,7 +18,13 @@ SH, and so do its device moments. Per batch:
      that leave the working set, scatter-added into `sh_grad_host`;
   4. a host Adam on one worker thread, submitted for each finish set once
      the gradients of its last camera have landed;
-  5. the card's Adam for the four resident groups.
+  5. the card's Adam for the four resident groups, in place over row chunks
+     (`optim.adam_update_`; the JAX package's donated `_adam_tail`).
+
+The card holds the resident state (the four groups, their two moments,
+alive and the three statistics: 145 bytes a row), a batch's accumulators
+(53 bytes a row) and a bounded working set: the filters' row chunks, a
+camera's compact set, the tail's row chunks.
 
 Retention (--retention, on by default): between consecutive cameras the
 working set is advanced on the card. Rows both cameras see stay (D), only
@@ -92,11 +98,12 @@ import torch
 import torch.distributed as dist
 
 from clm_gs_tpu_torch.models.gaussians import GaussianParams, GaussianState, host_zeros
-from clm_gs_tpu_torch.optim import AdamConfig, adam_step
+from clm_gs_tpu_torch.optim import AdamConfig, adam_update_
 from clm_gs_tpu_torch.parallel import mesh as M
 from clm_gs_tpu_torch.strategies import offload_common as oc
 from clm_gs_tpu_torch.strategies.no_offload import StepOut
 from clm_gs_tpu_torch.utils import hostmem, native
+from clm_gs_tpu_torch.utils.general import STAGES
 from clm_gs_tpu_torch.utils.timer import Timer
 
 SH_COLS = 48
@@ -134,8 +141,10 @@ class _Staging:
 @dataclass
 class ClmContext:
     sh_host: torch.Tensor  # (C, 48) the SH parameters
-    sh_grad_host: torch.Tensor  # (C, 48) their gradients within a batch
-    adam: native.HostAdam
+    # (C, 48) their gradients within a batch, and their moments; None in a
+    # context for eval alone (`_context`)
+    sh_grad_host: Optional[torch.Tensor]
+    adam: Optional[native.HostAdam]
     device: torch.device  # where batches run
     comm: Optional[torch.cuda.Stream]  # the copies' stream; None on the CPU
     up_rows: _Staging
@@ -178,16 +187,21 @@ class ClmContext:
         self.executor.shutdown(wait=True)
 
 
-def _context(sh_host: torch.Tensor, adam_cfg: AdamConfig, device, cfg) -> ClmContext:
+def _context(sh_host: torch.Tensor, adam_cfg: Optional[AdamConfig], device,
+             cfg) -> ClmContext:
+    """adam_cfg None: a context for `eval_one_cam` alone (the renderer), with
+    no gradient buffer and no moments: 192 bytes of host memory a row, not
+    768 (78.5 GB at 102M rows)."""
     device = torch.device(device)
     on_card = device.type == "cuda"
     C = sh_host.shape[0]
     comm = (torch.cuda.Stream(device, priority=cfg.aux.comm_stream_priority)
             if on_card else None)
+    train = adam_cfg is not None
     return ClmContext(
-        sh_host=sh_host, sh_grad_host=host_zeros(C, SH_COLS, device),
-        adam=native.HostAdam(C, SH_COLS, torch.zeros(SH_COLS), betas=adam_cfg.betas,
-                             eps=adam_cfg.eps),
+        sh_host=sh_host, sh_grad_host=host_zeros(C, SH_COLS, device) if train else None,
+        adam=(native.HostAdam(C, SH_COLS, torch.zeros(SH_COLS), betas=adam_cfg.betas,
+                              eps=adam_cfg.eps) if train else None),
         device=device, comm=comm,
         up_rows=_Staging(SH_COLS, torch.float32, on_card),
         up_idx=_Staging(1, torch.int32, on_card),
@@ -203,8 +217,9 @@ def make_context_empty(cfg, capacity: int, adam_cfg: AdamConfig,
     return _context(host_zeros(capacity, SH_COLS, device), adam_cfg, device, cfg)
 
 
-def make_context(cfg, state: GaussianState, adam_cfg: AdamConfig) -> ClmContext:
-    """A context holding the full `state`'s SH rows and zero moments."""
+def make_context(cfg, state: GaussianState, adam_cfg: Optional[AdamConfig]) -> ClmContext:
+    """A context holding the full `state`'s SH rows and zero moments (none
+    when adam_cfg is None: for eval alone, `_context`)."""
     device = state.alive.device
     C = state.alive.shape[0]
     if tuple(state.params.sh.shape) != (C, SH_COLS):
@@ -215,10 +230,11 @@ def make_context(cfg, state: GaussianState, adam_cfg: AdamConfig) -> ClmContext:
     return _context(sh_host, adam_cfg, device, cfg)
 
 
-def make_context_from_host(cfg, sh_host: torch.Tensor, adam_cfg: AdamConfig,
+def make_context_from_host(cfg, sh_host: torch.Tensor, adam_cfg: Optional[AdamConfig],
                            device="cuda") -> ClmContext:
     """A context that takes over the (C, 48) host SH rows of a loader called
-    with host_sh=True (pinned there when the run is on a card)."""
+    with host_sh=True (pinned there when the run is on a card); with
+    adam_cfg None, for eval alone (`_context`)."""
     device = torch.device(device)
     if device.type == "cuda" and not sh_host.is_pinned():
         sh_host = host_zeros(*sh_host.shape, device).copy_(sh_host)
@@ -509,6 +525,7 @@ def _plan(state, ctx: ClmContext, cams, width: int, height: int, cfg, n_chains: 
     p = state.params
     mesh = ctx.mesh
     tm.start("clm.filters")
+    STAGES.enter("clm.filters")
     row0 = 0 if mesh is None else mesh.gauss_index * ctx.sh_host.shape[0]
     F = oc.calculate_filters(p.xyz, p.quat, p.log_scale, state.alive, cams.viewmats,
                              cams.Ks, width, height, cfg.model.radius_clip,
@@ -518,6 +535,7 @@ def _plan(state, ctx: ClmContext, cams, width: int, height: int, cfg, n_chains: 
     tm.stop("clm.filters")
 
     tm.start("clm.order")
+    STAGES.enter("clm.order")
     dist_m, counts = oc.order_inputs(F, mesh)
     alive_host = state.alive.cpu()
     order, finish_sets, never = _order_and_finish_sets(
@@ -534,7 +552,15 @@ def train_one_batch(state, opt_state, ctx: ClmContext, cams, gt, sh_degree,
     chain of it. `lrs` holds the four card groups' rates on the card and
     "sh", (48,), read on the host. Returns (state, opt_state, ctx, StepOut)
     with the losses in the cameras' TSP order (on a mesh with chains,
-    step-major: each step's cameras in data order)."""
+    step-major: each step's cameras in data order).
+
+    Donation: the batch updates `state` and `opt_state` in place and
+    returns the same objects (the JAX package's `donate_argnums=(0, 1, 2, 3,
+    4)` of its `_adam_tail`): the four card groups' parameters and both
+    moments and `steps` (`optim.adam_update_`; not under
+    --stop_update_param), and the two densification statistics. No
+    parameter-sized copy is made; a caller that needs the starting state
+    clones it first."""
     tm = timers if timers is not None else Timer(enabled=False)
     p = state.params
     bsz = gt.shape[0]
@@ -558,6 +584,7 @@ def train_one_batch(state, opt_state, ctx: ClmContext, cams, gt, sh_degree,
     # 4. the camera loop over this rank's chain. A camera's gradient
     # download is drained one camera later, once the next camera's work is
     # queued on the card.
+    STAGES.enter("clm.micro")
     acc = oc.make_clm_acc(p)
     campos = cams.camtoworlds[:, :3, 3]
     losses, futures = [], []
@@ -611,15 +638,19 @@ def train_one_batch(state, opt_state, ctx: ClmContext, cams, gt, sh_degree,
     if n_chains > 1:
         acc, losses, n_isects = _sum_chains(acc, losses, n_isects, mesh)
 
-    # 5. Adam of the four card groups; the SH placeholder passes through
-    if stop_update:
-        new_params, new_opt = p, opt_state
-    else:
-        grads = GaussianParams(acc.g_xyz / bsz, acc.g_opacity / bsz,
-                               acc.g_log_scale / bsz, acc.g_quat / bsz, p.sh)
+    # 5. Adam of the four card groups in place, the accumulators divided in
+    # their own storage; the SH placeholder passes through
+    STAGES.enter("clm.adam")
+    if not stop_update:
+        for f in oc.GPU_FIELDS:
+            getattr(acc, "g_" + f).div_(bsz)
+        grads = GaussianParams(acc.g_xyz, acc.g_opacity, acc.g_log_scale, acc.g_quat,
+                               p.sh)
         mask = (state.alive & acc.vis_any) if sparse_adam else state.alive
-        new_params, new_opt = adam_step(
-            p, grads, opt_state, {k: lrs[k] for k in oc.GPU_FIELDS}, adam_cfg, mask)
+        adam_update_(p, grads, opt_state, {k: lrs[k] for k in oc.GPU_FIELDS}, adam_cfg,
+                     mask)
+    state.xyz_grad_accum.add_(acc.accum)
+    state.denom.add_(acc.denom)
 
     # the last download and the host Adam, after the card's work is done
     if ctx.device.type == "cuda":
@@ -630,13 +661,7 @@ def train_one_batch(state, opt_state, ctx: ClmContext, cams, gt, sh_degree,
         f.result()
     ctx.trailing_s += time.perf_counter() - t_dev_done
     ctx.n_batches += 1
-
-    new_state = GaussianState(
-        params=new_params, alive=state.alive, n_alive=state.n_alive,
-        xyz_grad_accum=state.xyz_grad_accum + acc.accum,
-        denom=state.denom + acc.denom, max_radii2d=state.max_radii2d,
-    )
-    return new_state, new_opt, ctx, StepOut(losses, max(n_isects), acc.vis_any, n_isects)
+    return state, opt_state, ctx, StepOut(losses, max(n_isects), acc.vis_any, n_isects)
 
 
 def prepare_device_loop(state, ctx: ClmContext, cams, gt, sh_degree, background,

@@ -31,7 +31,7 @@ import torch
 import torch.distributed as dist
 
 from clm_gs_tpu_torch.models.gaussians import GaussianParams
-from clm_gs_tpu_torch.ops.projection import fully_fused_projection
+from clm_gs_tpu_torch.ops.projection import _project_one_cam, covar_cols
 from clm_gs_tpu_torch.parallel.shard import gather_table, rasterize_table, table_rows
 from clm_gs_tpu_torch.strategies.base import (photometric_loss, rasterize_inputs,
                                               render_one_cam)
@@ -39,6 +39,12 @@ from clm_gs_tpu_torch.strategies.base import (photometric_loss, rasterize_inputs
 GPU_FIELDS = ("xyz", "opacity", "log_scale", "quat")
 # the camera-order TSP samples every SAMPLE_STRIDE-th row
 SAMPLE_STRIDE = 32
+# rows a chunk of `calculate_filters` (a multiple of SAMPLE_STRIDE): one
+# camera's projection temporaries of a chunk and the chunk's (B, rows)
+# visibility live at once (2.6 GB of the card at 2^22 rows; an H100,
+# BigCity-25M); fewer rows add launches, as the host queues each op of each
+# camera
+FILTER_CHUNK_ROWS = 1 << 21
 
 
 class Filters(NamedTuple):
@@ -50,23 +56,44 @@ class Filters(NamedTuple):
 @torch.no_grad()
 def calculate_filters(xyz, quat, log_scale, alive, viewmats, Ks, width: int,
                       height: int, radius_clip: float,
-                      sample_stride: int = SAMPLE_STRIDE, sample_phase: int = 0) -> Filters:
-    """Each camera's visible rows by projection alone (no SH needed), one
-    camera at a time so that only one camera's (C,) intermediates live. The
-    TSP sample takes rows sample_phase, sample_phase + sample_stride, ...
-    (on a gauss shard: the rows whose global id is a multiple of the
-    stride)."""
-    scales = torch.exp(log_scale)
-    ids, samples = [], []
-    for b in range(viewmats.shape[0]):
-        proj = fully_fused_projection(xyz, quat, scales, viewmats[b:b + 1],
-                                      Ks[b:b + 1], width, height,
-                                      radius_clip=radius_clip, alive=alive)
-        vis = proj.radii[0] > 0
-        ids.append(torch.nonzero(vis).flatten().to(torch.int32))
-        samples.append(vis[sample_phase::sample_stride])
+                      sample_stride: int = SAMPLE_STRIDE, sample_phase: int = 0,
+                      chunk_rows: int = FILTER_CHUNK_ROWS) -> Filters:
+    """Each camera's visible rows by projection alone (no SH needed). Rows
+    in the outer loop, `chunk_rows` at a time, cameras in the inner: a
+    chunk's scales and world covariance are computed once for all cameras,
+    only one camera's chunk-sized intermediates live at a time, and the
+    chunk's (B, rows) visibility is read back once (the JAX package maps
+    over cameras inside one jit, which XLA fuses). Each camera's ids are its
+    chunks' ids offset by the chunk start, ascending; the work is
+    elementwise per row, so ids, counts and sample equal an unchunked
+    pass's. The TSP sample takes rows sample_phase, sample_phase +
+    sample_stride, ... (on a gauss shard: the rows whose global id is a
+    multiple of the stride); chunks start at multiples of the stride.
+    `alive` None: every row."""
+    if chunk_rows % sample_stride:
+        raise ValueError(f"chunk_rows {chunk_rows} is not a multiple of the sample "
+                         f"stride {sample_stride}")
+    B, C = viewmats.shape[0], xyz.shape[0]
+    ids = [[] for _ in range(B)]
+    samples = []
+    for lo in range(0, C, chunk_rows):
+        hi = min(lo + chunk_rows, C)
+        means = xyz[lo:hi]
+        live = (torch.ones(hi - lo, dtype=torch.bool, device=xyz.device) if alive is None
+                else alive[lo:hi])
+        covar6 = covar_cols(quat[lo:hi], torch.exp(log_scale[lo:hi]))
+        vis = torch.stack([
+            _project_one_cam(means, covar6, viewmats[b], Ks[b], width, height,
+                             radius_clip, live)[0] > 0
+            for b in range(B)])
+        rows = (torch.nonzero(vis)[:, 1].to(torch.int32) + lo).split(vis.sum(1).tolist())
+        for b in range(B):
+            ids[b].append(rows[b])
+        # a copy: a view would keep every chunk's (B, rows) visibility alive
+        samples.append(vis[:, sample_phase::sample_stride].clone())
+    ids = [torch.cat(i) for i in ids]
     counts = torch.tensor([len(i) for i in ids], dtype=torch.int64)
-    return Filters(ids, counts, torch.stack(samples))
+    return Filters(ids, counts, torch.cat(samples, dim=1))
 
 
 def hamming_distance_matrix(sample) -> torch.Tensor:

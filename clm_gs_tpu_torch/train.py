@@ -67,11 +67,11 @@ from clm_gs_tpu_torch.scene import Scene
 from clm_gs_tpu_torch.strategies import clm_offload, naive_offload, no_offload
 from clm_gs_tpu_torch.utils.checkpoint import (latest_checkpoint,
                                                load_checkpoint, save_checkpoint)
-from clm_gs_tpu_torch.utils.general import (check_device,
+from clm_gs_tpu_torch.utils.general import (STAGES, check_device,
                                             check_update_at_this_iter,
-                                            get_expon_lr_func, memory_report,
-                                            next_capacity, psnr as psnr_fn,
-                                            rss_bytes)
+                                            device_peak_bytes, get_expon_lr_func,
+                                            memory_report, next_capacity,
+                                            psnr as psnr_fn, rss_bytes)
 from clm_gs_tpu_torch.utils.logger import NullLogger, RunLogger
 from clm_gs_tpu_torch.utils.timer import End2endTimer, Timer
 
@@ -104,7 +104,7 @@ def _grow_opt(opt: Optional[AdamState], new_cap: int) -> Optional[AdamState]:
 def _device_gb(device) -> float:
     if device.type != "cuda":
         return 0.0
-    return torch.cuda.max_memory_allocated(device) / 2**30
+    return device_peak_bytes() / 2**30
 
 
 def _host_gb() -> float:
@@ -116,8 +116,9 @@ def training(cfg: Config, device="cuda"):
     """Train per `cfg`; returns the final (state, opt_state). Under
     naive_offload the state's parameters are uploaded from the host copy and
     opt_state is None (the moments were on the host); under clm_offload the
-    SH rows are uploaded from the host buffer and opt_state's SH moments are
-    the (1, 48) placeholder; on a mesh, the whole state and moments on every
+    state's SH field is the (C, 48) host buffer itself (`materialize_host`:
+    the card never holds the SH rows) and opt_state's SH moments are the
+    (1, 48) placeholder; on a mesh, the whole state and moments on every
     rank."""
     device = check_device(device)
     with contextlib.ExitStack() as closing:
@@ -242,9 +243,10 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
     elif clm:
         if not ckpt:
             # the loader put the SH rows on the host; they never reach the card
+            # (opt_state, made above, has the 4 card groups and the SH
+            # placeholder's moments: a second one would sit beside it)
             strategy_ctx = strategy.make_context_from_host(cfg, scene.host_sh,
                                                            adam_cfg, device)
-            opt_state = init_adam(state.params)  # 4 card groups + placeholder
         elif state.params.sh.shape[0] != state.capacity:
             # a clm checkpoint: the card moments are restored, the SH rows
             # and their moments come from strategy_extra.npz
@@ -331,6 +333,7 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
     ema_loss = None
     iteration = start_iter
     while iteration <= cfg.opt.iterations:
+        STAGES.enter("loop")
         sh_degree = min((iteration - 1) // 1000, cfg.model.sh_degree)
         lrs = dict(fixed_lrs, xyz=scalar(float(xyz_lr_fn(iteration)) * lr_scale,
                                          lr_dev))
@@ -353,6 +356,7 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
                 and profiler is None):
             profiler = _start_profiler(device)
         timers.start("train_step")
+        STAGES.enter("train_step")
         if sharded_step is not None:
             state, opt_state, out = sharded_step(state, opt_state, cb, gt, sh_degree,
                                                  lrs, adam_cfg, background)
@@ -370,6 +374,7 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
                 stop_update_param=cfg.debug.stop_update_param,
             )
         timers.stop("train_step", sync=out.losses)
+        STAGES.enter("loop")
 
         loss = float(out.losses.mean())
         ema_loss = loss if ema_loss is None else 0.6 * ema_loss + 0.4 * loss
@@ -406,6 +411,7 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
                for ti in cfg.aux.test_iterations):
             e2e.pause(sync=out.losses)
             timers.start("eval")
+            STAGES.enter("eval")
             # naive_offload: one upload for the whole eval, freed after it;
             # clm_offload: each camera gathers its visible SH rows (on a
             # mesh every rank renders each camera through the mesh); a
@@ -417,6 +423,7 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
                                 save_images=writer)
             del eval_state
             timers.stop("eval")
+            STAGES.enter("loop")
             e2e.start()
 
         # ---- densification ----
@@ -541,12 +548,18 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
 
     if profiler is not None:
         _stop_profiler(profiler, cfg, logger)
+    STAGES.enter("end")
     e2e.pause(sync=state.params.xyz)
     if cfg.bench.end2end_time:
         logger.end2end(e2e.elapsed(), cfg.opt.iterations - start_iter + 1)
     if timers.enabled:
         logger.write(timers.report() + "\n")
-    if naive or clm:
+    if clm:
+        # the host SH buffer itself as the SH field: nothing parameter-sized
+        # goes up to the card at the end of a run
+        return (strategy.materialize_host(whole(state, None)[0], strategy_ctx),
+                whole(state, opt_state)[1])
+    if naive:
         return full_state(), whole(state, opt_state)[1]
     return whole(state, opt_state)
 

@@ -421,17 +421,21 @@ def run(root, out, iters: int, strategy: str = "clm_offload", extra=(),
         device_loop: bool = False, device="cuda"):
     """Train the scene at `root` (`train_args`, then `extra` flags, which
     override) into `out`. Returns what `collect` reads from the log, and the
-    kernels' launches, the peak device bytes, the process's RSS before the
+    kernels' launches, the peak device bytes (the whole run's) and
+    `peak_by_stage` (`general.STAGES`: set-up, the loop, each clm stage,
+    eval, the run's end), the process's RSS before the
     run, its peak sampled every RSS_SAMPLE_S within the set-up (the load)
-    and over the run, and its peak as the kernel keeps it; with
-    `device_loop`, also `device_loop_split` of the final state."""
+    and over the run, and its peak as the kernel keeps it, and the PLY
+    saves' seconds and the RSS sampled within them; with `device_loop`,
+    also `device_loop_split` of the final state."""
     from clm_gs_tpu_torch import _build
-    from clm_gs_tpu_torch.models.gaussians import _model_ply_header
+    from clm_gs_tpu_torch.models import gaussians as G
     from clm_gs_tpu_torch.train import main as train_main
-    from clm_gs_tpu_torch.utils.general import check_device, peak_rss_bytes, rss_bytes
+    from clm_gs_tpu_torch.utils.general import (STAGES, check_device, device_peak_bytes,
+                                                peak_rss_bytes, rss_bytes)
 
     device = check_device(device)
-    n, _ = _model_ply_header(os.path.join(root, INIT_PLY))
+    n, _ = G._model_ply_header(os.path.join(root, INIT_PLY))
     argv = train_args(root, out, iters, n, strategy) + list(extra)
     if device.type == "cuda":
         torch.empty(1, device=device)  # the card's context, before the run
@@ -447,12 +451,27 @@ def run(root, out, iters: int, strategy: str = "clm_offload", extra=(),
             samples.append((time.perf_counter(), rss_bytes()))
 
     sampler = threading.Thread(target=sample, daemon=True)
+    saves = []  # (start, end) of each PLY save of the run
+    save_ply = G.save_ply
+
+    def timed_save(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return save_ply(*args, **kwargs)
+        finally:
+            saves.append((t, time.perf_counter()))
+
     _build.reset_launches()
     t0 = time.perf_counter()
     sampler.start()
+    if device.type == "cuda":
+        STAGES.start("setup")
+    G.save_ply = timed_save
     try:
         state, _ = train_main(argv, device=device)
     finally:
+        G.save_ply = save_ply
+        peak_by_stage = STAGES.stop()
         done.set()
         sampler.join()
     rec = collect(out)
@@ -461,13 +480,23 @@ def run(root, out, iters: int, strategy: str = "clm_offload", extra=(),
     setup_end = t0 + (rec["setup_s"] or 0.0) + 0.5
     result = {"strategy": strategy, "argv": argv, "run_s": time.perf_counter() - t0,
               "launches": dict(_build.LAUNCHES),
-              "peak_device_bytes": (torch.cuda.max_memory_allocated()
-                                    if device.type == "cuda" else None),
+              "peak_device_bytes": (device_peak_bytes() if device.type == "cuda"
+                                    else None),
+              "peak_by_stage": peak_by_stage,
               "rss_before_bytes": rss_before,
               "setup_rss_bytes": max([r for t, r in samples if t <= setup_end],
                                      default=rss_before),
               "sampled_peak_rss_bytes": max([r for _, r in samples], default=rss_before),
-              "peak_rss_bytes": peak_rss_bytes(), **rec}
+              "peak_rss_bytes": peak_rss_bytes(),
+              # the PLY saves: their seconds, the last RSS sampled before the
+              # first and the peak sampled within them
+              "save_s": sum(b - a for a, b in saves),
+              "pre_save_rss_bytes": (([rss_before] + [r for t, r in samples
+                                                      if t < saves[0][0]])[-1]
+                                     if saves else None),
+              "save_rss_bytes": max([r for t, r in samples
+                                     if any(a <= t <= b for a, b in saves)], default=None),
+              **rec}
     if device_loop:
         holder = [state]
         del state
@@ -500,8 +529,8 @@ def device_loop_split(root, holder, argv, device, reps: int = 3):
     `prepare_device_loop`'s replay of the same batch timed (`reps` runs
     after one warm-up), then the in-situ batch with updates timed with the
     clm spans. `holder` is a list holding the state `train.main` returns
-    (its SH rows on the device), popped so that those rows are freed once a
-    new context has taken them to the host."""
+    (its SH field the run's host buffer, which a new context takes over),
+    popped so that the caller keeps no reference to the state."""
     from clm_gs_tpu_torch.config import parse_config
     from clm_gs_tpu_torch.optim import AdamConfig, init_adam, sh_column_lr
     from clm_gs_tpu_torch.strategies import clm_offload as clm
@@ -512,7 +541,7 @@ def device_loop_split(root, holder, argv, device, reps: int = 3):
     cb, gt, names = _batch(root, bsz, cfg.aux.llffhold, device)
     adam_cfg = AdamConfig().scaled(bsz, cfg.opt.lr_scale_mode)
     state = holder.pop()
-    ctx = clm.make_context(cfg, state, adam_cfg)
+    ctx = clm.make_context_from_host(cfg, state.params.sh, adam_cfg, device)
     state = clm.strip_device_sh(state)
     opt = init_adam(state.params)
     W, H = cb.width, cb.height

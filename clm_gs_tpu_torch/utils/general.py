@@ -132,14 +132,60 @@ def next_capacity(n: int, granule: int = 65536, headroom: float = 1.25) -> int:
     return round_up(int(granule * 2 ** (k + 1)), granule)
 
 
+class StagePeaks:
+    """The card's peak allocated bytes split by stage of a run. While on
+    (`start`), `enter(stage)` folds the peak since the last call into the
+    stage it leaves and into the run's running maximum, then resets the
+    card's counter, so `device_peak_bytes` stays the whole run's maximum.
+    Off, every call is a no-op. One instance, `STAGES`, which the training
+    loop (`train.py`) and the clm strategy mark and `utils/bigcity.py` `run`
+    starts."""
+
+    def __init__(self):
+        self.on = False
+        self.stage = None
+        self.peaks = {}
+        self.high = 0
+
+    def start(self, stage: str):
+        self.on, self.stage, self.peaks, self.high = True, stage, {}, 0
+
+    def _fold(self):
+        b = torch.cuda.max_memory_allocated()
+        self.peaks[self.stage] = max(self.peaks.get(self.stage, 0), b)
+        self.high = max(self.high, b)
+
+    def enter(self, stage: str):
+        if self.on and stage != self.stage:
+            self._fold()
+            torch.cuda.reset_peak_memory_stats()
+            self.stage = stage
+
+    def stop(self) -> dict:
+        """{stage: peak bytes}; the meter is off after it."""
+        if self.on:
+            self._fold()
+            self.on = False
+        return dict(self.peaks)
+
+
+STAGES = StagePeaks()
+
+
+def device_peak_bytes() -> int:
+    """The card's peak allocated bytes since its counter was last reset
+    outside `STAGES` (the running maximum of a split run and the counter)."""
+    return max(STAGES.high, torch.cuda.max_memory_allocated())
+
+
 def memory_report(check_device: bool = False, check_host: bool = False) -> str:
     """--check_gpu_memory / --check_cpu_memory: the card's peak allocated
-    bytes (torch.cuda.max_memory_allocated) and the process's peak RSS
+    bytes (`device_peak_bytes`) and the process's peak RSS
     (`peak_rss_bytes`)."""
     parts = []
     if check_device:
         if torch.cuda.is_available() and torch.cuda.is_initialized():
-            peak = torch.cuda.max_memory_allocated() / 2**30
+            peak = device_peak_bytes() / 2**30
             live = torch.cuda.memory_allocated() / 2**30
             parts.append(f"device peak {peak:.2f} GB")
             parts.append(f"device live {live:.2f} GB")
