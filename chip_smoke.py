@@ -5,7 +5,7 @@
 
 Phases, one JSON line each:
   1. device: the card's name and power limit (nvidia-smi), then an nvcc build
-     of the five kernels from csrc/, one process per source.
+     of the six kernels from csrc/, one process per source.
   2. kernels_mid: each kernel against its plain PyTorch version at a mid
      size (20,000 Gaussians, one 640x480 camera), and the kernel-path
      rasterizer against the dense oracle on a small scene.
@@ -14,6 +14,11 @@ Phases, one JSON line each:
   4. full: the bench scene, 1,000,000 Gaussians in a capacity of 1,048,576
      (SH degree 3), 4 cameras at 1237x822: one warm-up step and 3 timed
      train_steps, with each kernel's launch count over the timed steps.
+  4b. micro_group: on phase 4's state, from seeded moments, one train_step
+     with micro_group=B (projection and SH batched over the 4 cameras,
+     compositing per camera, one backward of the summed losses) against the
+     one-camera step: losses, parameter moves and first moments within
+     train_step_mid's tolerances, each step's seconds and peak memory.
   5. kernels: each kernel against its plain version at the full-width
      shapes of camera 0, with times, bounds and (segment reduce) the time of
      one PyTorch call computing the same function; the backward and segment
@@ -32,12 +37,14 @@ Phases, one JSON line each:
   6b. clm_step, on the state phase 6 leaves: from the same seeded moments,
      clm_offload.train_one_batch (SH rows and moments on the host, the
      camera order of csrc/host/fast_tsp.cpp) with retention, without it,
-     and with retention and --pinned_host's card-side gather
-     (csrc/pinned_gather.cu), against one no_offload.train_step: losses
-     (sorted, as the TSP reorders the cameras), parameter moves and first
-     moments, retention against the full re-gather, the card-side gather
-     against the host gather to the bit (losses, parameters, first moments,
-     the host SH rows) with the same bytes but the arriving rows' ids, the
+     and with retention and --pinned_host's card-side gather and gradient
+     scatter (csrc/pinned_gather.cu, csrc/pinned_scatter.cu), against one
+     no_offload.train_step: losses (sorted, as the TSP reorders the
+     cameras), parameter moves and first moments, retention against the
+     full re-gather, the card-side path against the host path to the bit
+     (losses, parameters, first moments, the host SH rows) with the same
+     bytes but the arriving rows' ids and the gradient rows the scatter
+     reads back for its add, the
      bytes of the clm state and card moments against no_offload's (at least
      the SH parameters' and their two moments' less), and for each: a first
      batch, five warm ones taken in turns with the other variants (the
@@ -45,7 +52,10 @@ Phases, one JSON line each:
      --enable_timer's spans. Then the gather kernel against its
      plain version on camera 0's visible rows, bit-equal, timed beside the
      host-staged fetch it replaces and bounded by the pinned host-to-card
-     copy rate measured in the same call.
+     copy rate measured in the same call; and the scatter kernel on the
+     same rows, adding and storing, bit-equal over the whole pinned table,
+     timed beside the download and host scatter it replaces, with the
+     card-to-pinned copy rate.
   6c. mesh_step: a world-1 NCCL process group and a 1x1 (data x gauss) mesh
      on a fresh copy of phase 4's scene: from the same seeded moments, one
      step of parallel/shard.py's sharded step (compact visible rows, the
@@ -65,8 +75,8 @@ Phases, one JSON line each:
      rows gathered over the gauss group) against one on this process alone:
      losses, parameter moves and first moments (the host SH rows' and
      moments' included), xyz_grad_accum and its increment's ratio, denom,
-     visibility and instance counts; the mesh batch with --pinned_host to
-     the bit; then 3 batches of each in turns, timed, with peak device
+     visibility and instance counts; the mesh batch with --pinned_host
+     (both pinned kernels launched) to the bit; then 3 batches of each in turns, timed, with peak device
      memory, a rank's host and card bytes and each kernel's launches over
      the first mesh batch. On a host with 2 or more cards the same check
      runs at 1x2 and 2x1 (and 2x2 with 4) in spawned NCCL processes, with
@@ -105,9 +115,9 @@ Phases, one JSON line each:
      clm spans; then a resume from its checkpoint with `python -m
      clm_gs_tpu_torch.train --clm_offload --pinned_host` (through runpy,
      which then prints the run's kernel launches), which restores the host
-     SH rows and moments from strategy_extra.npz into a new pinned buffer
-     that the card gathers from: its log says so, its test PSNR rises and
-     the gather kernel launched.
+     SH rows and moments from strategy_extra.npz into new pinned buffers
+     that the card gathers from and scatters into: its log says so, its test
+     PSNR rises and both pinned kernels launched.
   9b. mesh: the CLI's main with FULL_TRAIN_ARGS on phase 7's scene, started
      as a process group of one by the --dist_* flags with --mesh_shape 1x1
      (the sharded step, densification and growth on the whole state, eval,
@@ -148,8 +158,10 @@ Phases, one JSON line each:
      BIGCITY_ARGS (bsz 64, --sparse_adam, no densification) for 128
      iterations under --clm_offload, a test eval at its end, then times
      one batch of the final state in situ against
-     clm_offload.prepare_device_loop's replay (the card's share), and
-     under --no_offload; each run's peak device memory split by stage
+     clm_offload.prepare_device_loop's replay (the card's share) and one
+     more on the host path against the same batch with --pinned_host from
+     one start (bit-equal; its seconds, clm.d2h_scatter and clm.advance
+     beside the host path's), and under --no_offload; each run's peak device memory split by stage
      (`peak_by_stage`: set-up, the loop, the clm filters, order, micro
      loop and Adam tail, eval, the end). Gates: finite losses, clm's test
      PSNR above the init's and within 0.5 dB of no_offload's, clm's peak
@@ -160,8 +172,9 @@ Phases, one JSON line each:
      init PLY's state, the in-place Adam tail bit-equal to adam_step on a
      slice of 6M rows, the row-chunked filters' ids, counts and sample
      equal to the unchunked pass for two cameras, and each kernel against
-     its plain version on the first training camera's visible rows. The
-     summary and kernels lines follow it.
+     its plain version on the first training camera's visible rows (the
+     scatter into a pinned table of the whole capacity). The summary and
+     kernels lines follow it.
 The summary line also gives each phase's seconds (`phase_s`) and the
 script's (`total_s`). Any failed check exits 1. The last line is the device
 summary. Without CUDA,
@@ -217,6 +230,13 @@ KERNELS = {
 # an XLA host-space gather program, not a Pallas kernel.
 GATHER = "pinned_gather"
 GATHER_SOURCE = ("clm_gs_tpu_torch/csrc/pinned_gather.cu", "clm_gs_tpu/utils/hostmem.py:117")
+# Its other half, the SH-gradient scatter-add into pinned memory, whose JAX
+# counterpart is an XLA host-space scatter-add program.
+SCATTER = "pinned_scatter"
+SCATTER_SOURCE = ("clm_gs_tpu_torch/csrc/pinned_scatter.cu",
+                  "clm_gs_tpu/utils/hostmem.py:135")
+# bytes of one SH row (48 float32)
+ROW_BYTES = 192
 # `python -m MODULE ARGS...` as runpy runs it, then one JSON line on stdout:
 # the kernels the run launched and its peak device memory
 RUN_MODULE = """
@@ -396,6 +416,11 @@ def run(torch, report):
     emit(report["full"])
     lap("full")
 
+    # 4b. train_step's camera groups on the same scene
+    report["micro_group"] = micro_group_check(torch, scene, *step_args)
+    emit(report["micro_group"])
+    lap("micro_group")
+
     # 5. kernels at the full-width shapes
     full = kernel_checks(torch, reps=10, scene=scene)
     report["kernels_full"] = full
@@ -444,6 +469,7 @@ def run(torch, report):
                 "clm_step_launches": report["clm_step"]["launches"].get(k, 0),
                 "clm_step_card_gather_launches":
                     report["clm_step"]["card_gather_launches"].get(k, 0),
+                "micro_group_launches": report["micro_group"]["launches"].get(k, 0),
                 "clm_launches": report["clm"]["launches"].get(k, 0),
                 "clm_pinned_resume_launches":
                     report["clm"]["resume"]["launches"].get(k, 0),
@@ -457,11 +483,15 @@ def run(torch, report):
                                         report["trajectory"]["runs"].items()},
                 "bigcity_launches": {f: r.get(k, 0) for f, r in
                                      report["bigcity"]["launches"].items()},
+                "bigcity_pinned_batch_launches":
+                    report["bigcity"]["pinned_ab"]["runs"]["pinned"]["launches"].get(k, 0),
                 "bench4k_launches": report["bench4k"]["launches"].get(k, 0),
                 "parity_launches": {s: r["launches"].get(k, 0) for s, r in
                                     report["parity"]["runs"].items()}}
 
     g = report["clm_step"]["pinned_gather"]
+    sc = report["clm_step"]["pinned_scatter"]
+    sc_city = report["bigcity"]["kernels"]["pinned_scatter"]
     k4 = report["bench4k"]["kernels"]
     emit({"kernels": [
         {"name": k, "status": "ported", "route": "cuda", "source": KERNELS[k][0],
@@ -482,7 +512,20 @@ def run(torch, report):
          "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
          "library_ms": None, "host_staged_fetch_ms": g["host_staged_fetch_ms"],
          "bound_rate": g["bound_rates"]["bus"],
-         "h2d_copy_bytes_per_s": g["h2d_bytes_per_s"], "rows": g["rows"]}
+         "h2d_copy_bytes_per_s": g["h2d_bytes_per_s"], "rows": g["rows"]},
+        # the same main path
+        {"name": SCATTER, "status": "ported", "route": "cuda", "source": SCATTER_SOURCE[0],
+         "replaces": SCATTER_SOURCE[1],
+         "launches": report["clm_step"]["card_gather_launches"].get(SCATTER, 0),
+         **other_launches(SCATTER), "max_abs_err": sc["max_abs_err"], "ms": sc["ms"],
+         "plain_ms": sc["plain_ms"], "bound_ms": sc["bound_ms"], "bound_by": sc["bound_by"],
+         "library_ms": None, "store_ms": sc["store_ms"],
+         "host_path_ms": sc["host_path_ms"], "bound_rate": sc["bound_rates"]["bus"],
+         "d2h_copy_bytes_per_s": sc["d2h_bytes_per_s"], "rows": sc["rows"],
+         "bigcity_rows": sc_city["rows"], "bigcity_ms": sc_city["ms"],
+         "bigcity_bound_ms": sc_city["bound_ms"],
+         "bigcity_max_abs_err": sc_city["max_abs_err"],
+         "bigcity_host_path_ms": sc_city["host_path_ms"]}
     ]})
 
 
@@ -542,7 +585,12 @@ def summary(report):
         "spans_ms_host_vs_card_gather": step["spans_ms_host_vs_card_gather"],
         "card_gather_equal_to_host_gather": all(
             step["card_gather_equal_to_host_gather"].values()),
-        "pinned_gather": step["pinned_gather"]},
+        "pinned_gather": step["pinned_gather"],
+        "pinned_scatter": {k: step["pinned_scatter"][k] for k in (
+            "rows", "ms", "store_ms", "plain_ms", "host_path_ms", "bound_ms",
+            "d2h_bytes_per_s", "exact")}},
+        "micro_group": {k: report["micro_group"][k] for k in (
+            "group", "loss_rel_err", "param_step_rel_err", "grad_rel_err", "step_s")},
         "clm_it_per_s": clm["it_per_s"], "cli_it_per_s": report["cli"]["it_per_s"],
         "naive_it_per_s": report["naive"]["it_per_s"],
         "clm_pinned_resume": {k: clm["resume"][k] for k in ("end2end", "test_psnr", "launches")},
@@ -574,6 +622,7 @@ def summary(report):
             "final_test_psnr", "peak_device_bytes", "sampled_peak_rss_bytes",
             "clm_host_state_bytes", "rss_before_bytes", "load_rss_over_host_state_bytes",
             "clm_spans_ms_per_call", "clm_overlap")} | {
+            "pinned_ab": report["bigcity"]["pinned_ab"]} | {
             "device_loop": {k: report["bigcity"]["device_loop"][k] for k in (
                 "replay_median_s", "batch_s", "card_share_of_batch",
                 "replay_equal_to_in_situ", "batch_h2d_bytes", "batch_d2h_bytes",
@@ -1005,6 +1054,59 @@ def full_width(torch):
         "n_isects": n_isects, "max_memory_allocated": peak,
         "launches": launches,
     }, (lrs, cfg)
+
+
+def micro_group_check(torch, scene, lrs, adam_cfg):
+    """Phase 4b: on phase 4's state, from the same seeded moments, one
+    no_offload.train_step with micro_group=B (one group of the whole batch:
+    projection and SH batched, compositing per camera, one backward of the
+    summed losses) against the one-camera step (G = 1): losses, parameter
+    moves and first moments within train_step_mid's tolerances; each step's
+    seconds and peak device memory, and the group step's launches."""
+    from clm_gs_tpu_torch import _build
+    from clm_gs_tpu_torch.strategies.no_offload import group_size, train_step
+
+    state, cb, gts, bg = scene
+    w, h, bsz = cb.width, cb.height, gts.shape[0]
+    opt = _seeded_moments(torch, state.params, "cuda")
+    outs, launches = {}, {}
+    for G in (1, bsz):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        s, o, out = train_step(state, opt, cb, gts, 3, lrs, adam_cfg, bg, w, h,
+                               micro_group=G)
+        torch.cuda.synchronize()
+        outs[G] = (s, o, out.losses.cpu(), time.perf_counter() - t0,
+                   torch.cuda.max_memory_allocated())
+        launches[G] = dict(_build.LAUNCHES)
+    (s1, o1, l1, t1, m1), (sg, og, lg, tg, mg) = outs[1], outs[bsz]
+    loss_rel = ((lg - l1).abs() / l1.abs()).max().item()
+    step_rel = grad_rel = 0.0
+    for f in GROUPS:
+        p0 = getattr(state.params, f)
+        d1, dg = getattr(s1.params, f) - p0, getattr(sg.params, f) - p0
+        step_rel = max(step_rel, ((dg - d1).abs().max()
+                                  / d1.abs().max().clamp_min(1e-30)).item())
+        gscale = (getattr(o1.mu, f) - 0.9 * getattr(opt.mu, f)).abs().max()
+        grad_rel = max(grad_rel, ((getattr(og.mu, f) - getattr(o1.mu, f)).abs().max()
+                                  / gscale.clamp_min(1e-30)).item())
+    result = {"phase": "micro_group", "group": group_size(bsz, bsz), "cameras": bsz,
+              "losses_group": lg.tolist(), "losses_one": l1.tolist(),
+              "loss_rel_err": loss_rel, "param_step_rel_err": step_rel,
+              "grad_rel_err": grad_rel, "tol": [TOL["loss_rel"], TOL["step_rel"]],
+              "step_s": {"one": t1, "group": tg},
+              "peak_device_bytes": {"one": m1, "group": mg},
+              "launches": launches[bsz], "one_launches": launches[1]}
+    check(bool(torch.isfinite(lg).all()) and loss_rel <= TOL["loss_rel"]
+          and step_rel <= TOL["step_rel"] and grad_rel <= TOL["step_rel"],
+          f"micro_group {bsz} against one camera at a time: loss {loss_rel}, "
+          f"step {step_rel}, grad {grad_rel}")
+    check(all(launches[bsz].get(k, 0) >= bsz for k in ("rasterize_fwd", "rasterize_bwd",
+                                                        "segreduce")),
+          f"micro_group: the kernels launch per camera: {launches[bsz]}")
+    return result
 
 
 # gradient thresholds of the cli phase's densification probe
@@ -1570,17 +1672,26 @@ def clm_step(torch, box, lrs, adam_cfg):
     host_lrs = dict(lrs, sh=lrs["sh"].cpu())
 
     arriving = []  # rows arriving at each transition of a batch
+    down = []  # gradient rows going down at each camera of a batch
     classify = clm._classify_transition
+    download, scatter = clm._download, clm._scatter
 
     def counted(prev_ids, next_ids):
         out = classify(prev_ids, next_ids)
         arriving.append(len(out[3]))
         return out
 
+    def counted_down(fn):
+        def wrapper(ctx, rows, *args):
+            down.append(rows.shape[0])
+            return fn(ctx, rows, *args)
+        return wrapper
+
     def batch(cfg, ctx, timed):
         """One batch from the seeded start (the state and moments cloned),
         the context reset to it."""
         arriving.clear()
+        down.clear()
         ctx.sh_host.copy_(p0["sh"])
         ctx.sh_grad_host.zero_()
         ctx.adam.exp_avg, ctx.adam.exp_avg_sq = mu0["sh"].clone(), sh_nu0.clone()
@@ -1612,6 +1723,7 @@ def clm_step(torch, box, lrs, adam_cfg):
             "adam_work_s": ctx.adam_work_s,
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
             "launches": dict(_build.LAUNCHES), "arriving_rows": sum(arriving),
+            "down_rows": sum(down),
         }
         if timed:
             run["span_ms"] = {k: timers.sums[k] * 1e3 for k in CLM_SPANS if k in timers.sums}
@@ -1631,6 +1743,7 @@ def clm_step(torch, box, lrs, adam_cfg):
         init_config(cfg)
     keys = list(cfgs)
     clm._classify_transition = counted
+    clm._download, clm._scatter = counted_down(download), counted_down(scatter)
     try:
         for key in keys:
             ctxs[key] = clm.make_context(cfgs[key], state, adam_cfg)
@@ -1642,6 +1755,7 @@ def clm_step(torch, box, lrs, adam_cfg):
         timed = {key: batch(cfgs[key], ctxs[key], True)[0] for key in keys}
     finally:
         clm._classify_transition = classify
+        clm._download, clm._scatter = download, scatter
         for ctx in ctxs.values():
             ctx.close()
     runs, finals = {}, {}
@@ -1656,9 +1770,11 @@ def clm_step(torch, box, lrs, adam_cfg):
                   and r["order_losses_sorted"] == median["order_losses_sorted"],
                   f"clm_step {key}: warm batches differ")
     gather = gather_check(torch, s, cb, w, h, ctxs)
+    scatter_k = scatter_check(torch, s, cb, w, h, ctxs)
     del ctxs
-    # the card-side gather against the host gather, to the bit: a gather is
-    # a copy, and both paths sum the same rows in the same order
+    # the card-side gather and scatter against the host gather and scatter,
+    # to the bit: a gather is a copy, and both paths sum the same rows in
+    # the same order
     host_p, host_mu, host_l = finals["retention"]
     card_p, card_mu, card_l = finals["card_gather"]
     card_equal = {f: torch.equal(card_p[f], host_p[f]) and torch.equal(card_mu[f], host_mu[f])
@@ -1667,6 +1783,9 @@ def clm_step(torch, box, lrs, adam_cfg):
     bytes_vs_host = {when: {"h2d_minus_host": runs["card_gather"][when]["h2d_bytes"]
                             - runs["retention"][when]["h2d_bytes"],
                             "arriving_id_bytes": 4 * runs["card_gather"][when]["arriving_rows"],
+                            # the rows the scatter reads back for its add
+                            "scatter_read_bytes":
+                                ROW_BYTES * runs["card_gather"][when]["down_rows"],
                             "d2h_minus_host": runs["card_gather"][when]["d2h_bytes"]
                             - runs["retention"][when]["d2h_bytes"]}
                      for when in ("first", "warm", "timed")}
@@ -1691,6 +1810,7 @@ def clm_step(torch, box, lrs, adam_cfg):
         "card_gather_bytes_vs_host": bytes_vs_host,
         "spans_ms_host_vs_card_gather": spans_vs_host,
         "pinned_gather": gather,
+        "pinned_scatter": scatter_k,
     }
     for key, r in runs.items():
         for when, run in r.items():
@@ -1709,14 +1829,19 @@ def clm_step(torch, box, lrs, adam_cfg):
     check(all(card_equal.values()),
           f"clm_step: the card-side gather differs from the host gather: {card_equal}")
     for when, b in bytes_vs_host.items():
-        check(b["h2d_minus_host"] == b["arriving_id_bytes"] > 0 and b["d2h_minus_host"] == 0
+        check(b["h2d_minus_host"] == b["arriving_id_bytes"] + b["scatter_read_bytes"]
+              and b["arriving_id_bytes"] > 0 and b["d2h_minus_host"] == 0
               and runs["card_gather"][when]["arriving_rows"]
-              == runs["retention"][when]["arriving_rows"],
-              f"clm_step: card-side gather bytes against the host gather ({when}): {b}")
+              == runs["retention"][when]["arriving_rows"]
+              and runs["card_gather"][when]["down_rows"]
+              == runs["retention"][when]["down_rows"] > 0,
+              f"clm_step: card-side gather and scatter bytes against the host path "
+              f"({when}): {b}")
     for key, r in runs.items():
-        n = [run["launches"].get(GATHER, 0) for run in r.values()]
-        check(all(n) if key == "card_gather" else not any(n),
-              f"clm_step {key}: pinned_gather launches {n}")
+        for name in (GATHER, SCATTER):
+            n = [run["launches"].get(name, 0) for run in r.values()]
+            check(all(n) if key == "card_gather" else not any(n),
+                  f"clm_step {key}: {name} launches {n}")
     check(runs["retention"]["warm"]["h2d_bytes"] < runs["full_regather"]["warm"]["h2d_bytes"],
           "clm_step: retention moved no fewer bytes up than the full re-gather")
     check(no_bytes - clm_bytes >= 3 * (C - 1) * SH_COLS * 4,
@@ -1783,6 +1908,95 @@ def gather_check(torch, state, cb, w, h, ctxs):
         "h2d_copy_ms": copy_ms, "h2d_bytes_per_s": h2d_rate,
         "bound_ms": max(t_bus, t_hbm), "bound_by": "bytes",
         "bound_rates": {"bus": "PCIe Gen5 x16, 64e9 B/s host to card (NVIDIA data sheet)",
+                        "hbm": "3.35e12 B/s"},
+        "bound_parts_ms": {"bus": t_bus, "hbm": t_hbm},
+        "library_ms": None,
+    }
+
+
+def scatter_check(torch, state, cb, w, h, ctxs):
+    """csrc/pinned_scatter.cu on camera 0's visible rows of `state` (the ids
+    its flush gives the kernel), into the pinned SH-gradient table of the
+    card-gather context (`scatter_kernel_check`)."""
+    from clm_gs_tpu_torch.strategies import offload_common as oc
+
+    p = state.params
+    ids = oc.calculate_filters(p.xyz, p.quat, p.log_scale, state.alive, cb.viewmats[:1],
+                               cb.Ks[:1], w, h, 0.0).ids[0]
+    table = ctxs["card_gather"].sh_grad_host
+    check(table.is_pinned() and ctxs["card_gather"].card_gather, "clm_step: scatter context")
+    return scatter_kernel_check(torch, table, ids)
+
+
+def scatter_kernel_check(torch, table, ids, reps=10):
+    """csrc/pinned_scatter.cu against its plain version on the pinned (C,
+    48) `table` at `ids` (unique, on the card), the table and the rows
+    random: adding and storing, bit-equal over the whole table. Then the
+    kernel timed adding and storing, beside the plain version and the host
+    path it replaces: the rows downloaded into a pinned slot on a comm
+    stream (`clm_offload._download`), the wait for its event and
+    native.scatter_add_rows. The bound is the rows' bytes over the link's
+    published rate a direction (PEAK_PCIE_H2D; adding moves them up for the
+    read and down for the write, at once), or the ids' and rows' bytes over
+    HBM's, whichever is longer. Beside it, `d2h_bytes_per_s` is the rate a
+    copy engine reaches here card to pinned memory (a non-blocking copy_ of
+    the whole table), the achievable rate of a bulk download."""
+    from clm_gs_tpu_torch.config import Config, init_config
+    from clm_gs_tpu_torch.strategies import clm_offload as clm
+    from clm_gs_tpu_torch.utils import hostmem, native
+
+    dev = ids.device
+    n = ids.numel()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows = torch.rand((n, SH_COLS), generator=gen, device=dev)
+    start = torch.rand(tuple(table.shape), generator=gen, device=dev)
+    exact, err = {}, 0.0
+    start_host = start.cpu()
+    touched = ids.cpu().long()
+    for name, accumulate in (("add", True), ("store", False)):
+        table.copy_(start)
+        hostmem.scatter_add_rows_pinned_cuda(table, rows, ids, accumulate)
+        torch.cuda.synchronize()
+        want = start_host.clone()
+        hostmem.scatter_add_rows_pinned_plain(want, rows, ids, accumulate)
+        exact[name] = torch.equal(table, want)
+        err = max(err, (table[touched] - want[touched]).abs().max().item())
+        del want
+    del start_host
+    check(all(exact.values()), f"pinned_scatter differs from its plain version: {exact}")
+    ms = time_ms(torch, lambda: hostmem.scatter_add_rows_pinned_cuda(table, rows, ids),
+                 reps=reps)
+    store_ms = time_ms(torch, lambda: hostmem.scatter_add_rows_pinned_cuda(
+        table, rows, ids, False), reps=reps)
+    plain_ms = wall_ms(torch, lambda: hostmem.scatter_add_rows_pinned_plain(table, rows, ids),
+                       reps=3)
+    # the host path's own context: its comm stream and download slots
+    ctx = clm._context(table, None, dev, init_config(Config()))
+    ctx.sh_grad_host = table
+    ids_host = ids.cpu()
+
+    def host_path():
+        host, landed = clm._download(ctx, rows)
+        if landed is not None:
+            landed.synchronize()
+        native.scatter_add_rows(table, host, ids_host)
+
+    try:
+        host_ms = wall_ms(torch, host_path)
+    finally:
+        ctx.close()
+    copy_ms = time_ms(torch, lambda: table.copy_(start, non_blocking=True), reps=3, warmup=1)
+    del start
+    row_bytes = n * ROW_BYTES
+    t_bus = row_bytes / PEAK_PCIE_H2D * 1e3
+    t_hbm = (n * ids.element_size() + row_bytes) / PEAK_BYTES * 1e3
+    return {
+        "rows": n, "table_rows": table.shape[0], "row_bytes": row_bytes,
+        "max_abs_err": err, "exact": exact, "ms": ms, "store_ms": store_ms,
+        "plain_ms": plain_ms, "host_path_ms": host_ms,
+        "d2h_copy_ms": copy_ms, "d2h_bytes_per_s": table.numel() * 4 / (copy_ms * 1e-3),
+        "bound_ms": max(t_bus, t_hbm), "bound_by": "bytes",
+        "bound_rates": {"bus": "PCIe Gen5 x16, 64e9 B/s each way (NVIDIA data sheet)",
                         "hbm": "3.35e12 B/s"},
         "bound_parts_ms": {"bus": t_bus, "hbm": t_hbm},
         "library_ms": None,
@@ -1932,12 +2146,13 @@ def clm_cli_run(torch, work, scene, cli, naive):
           f"clm: the resumed call failed (rc {res.returncode}, strategy_extra.npz "
           f"{extra_saved}): {last}")
     psnr2 = log2["test_psnr"]
-    check(len(said) == 1 and "card-side SH gather on" in said[0]
-          and "csrc/pinned_gather.cu" in said[0],
+    check(len(said) == 1 and "card-side SH gather and gradient scatter on" in said[0]
+          and "csrc/pinned_gather.cu" in said[0] and "csrc/pinned_scatter.cu" in said[0],
           f"clm: the --pinned_host resume's log says {said}")
     check(len(psnr2) >= 2 and psnr2[-1] > psnr2[0],
           f"clm: the --pinned_host resume's test PSNR did not rise: {psnr2}")
     check(resume_run["launches"].get(GATHER, 0) > 0
+          and resume_run["launches"].get(SCATTER, 0) > 0
           and all(resume_run["launches"].get(k, 0) > 0 for k in KERNELS),
           f"clm: the --pinned_host resume's launches {resume_run['launches']}")
     return result
@@ -2267,7 +2482,8 @@ def clm_mesh_rank_check(torch, shape, time_single):
     pinned_launches = dict(_build.LAUNCHES)
     pinned_equal = {"losses": torch.equal(pinned[2].losses, sharded[2].losses),
                     "sh_host": torch.equal(ctxp.sh_host, ctxm.sh_host),
-                    "sh_exp_avg": torch.equal(ctxp.adam.exp_avg, ctxm.adam.exp_avg)}
+                    "sh_exp_avg": torch.equal(ctxp.adam.exp_avg, ctxm.adam.exp_avg),
+                    "sh_exp_avg_sq": torch.equal(ctxp.adam.exp_avg_sq, ctxm.adam.exp_avg_sq)}
     for f in GROUPS[:4]:
         pinned_equal[f] = (torch.equal(getattr(pinned[0].params, f),
                                        getattr(sharded[0].params, f))
@@ -2375,7 +2591,8 @@ def clm_mesh_step(torch):
           f"clm_mesh_step: --pinned_host differs: {one['pinned_equal_to_host_gather']}")
     check(all(one["launches"].get(k, 0) > 0 for k in KERNELS)
           and one["pinned_launches"].get(GATHER, 0) > 0
-          and not one["launches"].get(GATHER, 0),
+          and one["pinned_launches"].get(SCATTER, 0) > 0
+          and not one["launches"].get(GATHER, 0) and not one["launches"].get(SCATTER, 0),
           f"clm_mesh_step: launches {one['launches']}, pinned {one['pinned_launches']}")
     for shape, rs in ranks.items():
         for r in rs:
@@ -2987,6 +3204,7 @@ def _bigcity_kernels(torch, scene, cap):
     truth."""
     from clm_gs_tpu_torch.models import gaussians as G
     from clm_gs_tpu_torch.strategies import offload_common as oc
+    from clm_gs_tpu_torch.utils import hostmem
     from clm_gs_tpu_torch.utils.bigcity import INIT_PLY, _batch
 
     state = G.load_ply(f"{scene}/{INIT_PLY}", capacity=cap, device="cuda")
@@ -3009,6 +3227,13 @@ def _bigcity_kernels(torch, scene, cap):
     out = kernel_checks(torch, scene=(cstate, cb, gt, torch.zeros(3, device="cuda")),
                         timed=False)
     out["shape"]["camera"] = names[0]
+    # the gradient scatter into a pinned table of the whole capacity, at
+    # the camera's rows (its flush)
+    del cstate, compact
+    torch.cuda.empty_cache()
+    table = hostmem.pinned_zeros((cap, SH_COLS))
+    out[SCATTER] = scatter_kernel_check(torch, table, F.ids[0], reps=5)
+    del table
     return out, tail, filters
 
 
@@ -3039,7 +3264,8 @@ def bigcity_run(torch, city):
     free = city["disk_free_bytes"]
     make = _bigcity_make_wait(city, 900)
     runs = {}
-    for name, flags in (("clm", ["--device_loop"]), ("no_offload", ["--no_offload"])):
+    for name, flags in (("clm", ["--device_loop", "--pinned_ab"]),
+                        ("no_offload", ["--no_offload"])):
         runs[name] = _bigcity_cli(
             root, ["run", scene, f"{work}/{name}", "--iters", str(BIGCITY_ITERS),
                    *flags, "--", *BIGCITY_EXTRA], 900)
@@ -3050,6 +3276,7 @@ def bigcity_run(torch, city):
     torch.cuda.empty_cache()
     clm, no = runs["clm"], runs["no_offload"]
     loop = clm["device_loop"]
+    ab = loop.pop("pinned_ab")
     psnr = {k: [e["psnr"] for e in r["final_eval"] if e["split"] == "test"]
             for k, r in runs.items()}
     batches = BIGCITY_ITERS // 64
@@ -3082,6 +3309,13 @@ def bigcity_run(torch, city):
         "clm_spans_ms_per_call": spans, "clm_overlap": clm["overlap_last"],
         "run_s": {k: r["s"] for k, r in runs.items()},
         "device_loop": loop, "in_place_tail": tail, "chunked_filters": filters,
+        # one batch of the final state on the host path against one with
+        # --pinned_host, from one start
+        "pinned_ab": {"equal": ab["equal"], "runs": {k: {
+            "batch_s": r["batch_s"], "trailing_s": r["trailing_s"],
+            "h2d_bytes": r["h2d_bytes"], "d2h_bytes": r["d2h_bytes"],
+            "launches": r["launches"], "spans_ms": {
+                s: r["spans_ms"].get(s) for s in CLM_SPANS}} for k, r in ab["runs"].items()}},
         "launches": {"make": make["gt_launches"], "clm": clm["launches"],
                      "no_offload": no["launches"]},
         "kernels": kernels,
@@ -3119,6 +3353,12 @@ def bigcity_run(torch, city):
     for k in ("clm", "no_offload"):
         check(all(runs[k]["launches"].get(name, 0) > 0 for name in KERNELS),
               f"bigcity {k}: a kernel of the path never launched: {runs[k]['launches']}")
+    check(all(ab["equal"].values()),
+          f"bigcity: the --pinned_host batch differs from the host path's: {ab['equal']}")
+    pl, hl = ab["runs"]["pinned"]["launches"], ab["runs"]["host"]["launches"]
+    check(all(pl.get(name, 0) > 0 for name in (*KERNELS, GATHER, SCATTER))
+          and not hl.get(GATHER, 0) and not hl.get(SCATTER, 0),
+          f"bigcity: --pinned_host batch launches {pl}, host path's {hl}")
     return result
 
 

@@ -164,7 +164,8 @@ class TpuParams:
     """The JAX package's own knobs. The port uses `capacity_granule`,
     `eval_res_cap`, `gt_device_cache_mb`, clm_offload's `retention` and
     `pinned_host` (the card gathers the SH rows out of the pinned host
-    buffer, utils/hostmem.py), and the multi-card ones: `dist_*` start the
+    buffer and adds their gradients into the pinned gradient buffer,
+    utils/hostmem.py), and the multi-card ones: `dist_*` start the
     process group (or torchrun's variables do), `mesh_shape` ("" all data,
     "A" A-way data, "AxB" A data x B gauss) and `shard_gaussians` (off: each
     rank trains the whole state alone). It accepts and ignores the TPU's

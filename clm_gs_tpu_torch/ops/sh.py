@@ -80,6 +80,14 @@ def spherical_harmonics(active_degree: int, dirs, coeffs):
     return torch.einsum("nk,nkc->nc", basis, coeffs)
 
 
+def spherical_harmonics_vjp_coeffs(active_degree: int, dirs, v_colors):
+    """The hand-derived d(colour)/d(coeffs) contraction: the masked basis of
+    `dirs` (N, 3) times the colour gradients `v_colors` (N, 3), an outer
+    product per row -> (N, 16, 3)."""
+    basis = sh_basis(dirs) * degree_mask(active_degree, dirs.dtype, dirs.device)
+    return basis[..., None] * v_colors[..., None, :]
+
+
 def sh_color_flat(basis, sh_flat):
     """A masked (N, 16) basis contracted with the flat (N, 48) table:
     color_c = sum_k basis_k * sh[:, 3k + c]."""

@@ -1,5 +1,5 @@
-"""One camera's differentiable render and the photometric loss
-(clm_gs_tpu/strategies/base.py:29-87).
+"""One camera's differentiable render, G cameras' (`render_cams`), and the
+photometric loss (clm_gs_tpu/strategies/base.py:29-160).
 
 Projection -> SH colours -> binning + compositing. ``RenderOut.means2d`` is
 the screen-space position tensor; a caller that wants its gradient (the
@@ -9,7 +9,7 @@ torch form of the reference's zero-valued ``probe`` input.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -57,6 +57,43 @@ def render_one_cam(params: GaussianParams, alive, viewmat, Kmat, campos,
         means2d, conics, colors, opac, depths, radii, width, height, background
     )
     return RenderOut(image, alpha, radii, n_isects, means2d)
+
+
+class RenderBatchOut(NamedTuple):
+    images: torch.Tensor  # (G, 3, H, W)
+    alphas: torch.Tensor  # (G, H, W)
+    radii: torch.Tensor  # (G, C) 0 = culled
+    n_isects: Tuple[int, ...]  # (G,)
+    means2d: torch.Tensor  # (G, C, 2)
+
+
+def render_cams(params: GaussianParams, alive, viewmats, Kmats, campos, sh_degree: int,
+                width: int, height: int, background) -> RenderBatchOut:
+    """Differentiable render of G cameras (viewmats (G, 4, 4), Kmats (G, 3,
+    3), campos (G, 3)) from the full padded buffer: projection and SH colours
+    batched over the G cameras, compositing per camera (the JAX package's
+    default branch; its CLMGS_RAST_BATCH gate to `rasterize_batch` is not
+    carried). Each camera's math is render_one_cam's."""
+    opac, scales = activated(params)
+    proj = fully_fused_projection(
+        params.xyz, params.quat, scales, viewmats, Kmats, width, height, alive=alive,
+    )
+    dirs = params.xyz[None, :, :] - campos[:, None, :]  # (G, C, 3)
+    basis = sh_basis(dirs) * degree_mask(sh_degree, dirs.dtype, dirs.device)
+    colors = torch.clamp_min(
+        torch.einsum("gnk,nkc->gnc", basis, sh_coeffs(params)) + 0.5, 0.0
+    )
+    imgs, als, nis = [], [], []
+    for b in range(viewmats.shape[0]):
+        img, al, ni = rasterize(
+            proj.means2d[b], proj.conics[b], colors[b], opac, proj.depths[b],
+            proj.radii[b], width, height, background,
+        )
+        imgs.append(img)
+        als.append(al)
+        nis.append(ni)
+    return RenderBatchOut(torch.stack(imgs), torch.stack(als), proj.radii, tuple(nis),
+                          proj.means2d)
 
 
 def photometric_loss(image, gt_image, lambda_dssim: float = 0.2,

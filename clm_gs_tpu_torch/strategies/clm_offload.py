@@ -15,7 +15,8 @@ SH, and so do its device moments. Per batch:
   3. per camera in that order: the visible SH rows gathered on the host and
      uploaded, the fused forward and backward over the compact set
      (`clm_fused_step`), and the download of the SH gradients of the rows
-     that leave the working set, scatter-added into `sh_grad_host`;
+     that leave the working set, scatter-added into `sh_grad_host` (by the
+     card under --pinned_host, below);
   4. a host Adam on one worker thread, submitted for each finish set once
      the gradients of its last camera have landed;
   5. the card's Adam for the four resident groups, in place over row chunks
@@ -33,15 +34,25 @@ accumulated gradients go down (G); the last camera flushes its whole set.
 The advance is three row gathers with maps built on the host. Without
 retention every camera fetches its whole set; the arithmetic is the same.
 
-With --pinned_host (`ClmContext.card_gather`) the card gathers the SH rows
-itself out of the pinned `sh_host` by ids on the card
-(`utils/hostmem.gather_rows_pinned`, csrc/pinned_gather.cu): the first
-fetch and the eval by the filter's ids, the advance by the arriving rows'
-ids, which go up with its maps. No host gather, no staging slot and no row
-upload; each gather runs on the compute stream, so it is ordered before the
-download of its camera's gradients and thus before the host Adam rewrites
-any row it reads. `h2d_bytes` counts the rows it reads over the bus as an
-upload's.
+With --pinned_host (`ClmContext.card_gather`) the card moves the SH rows
+itself, both ways, through the pinned buffers' mapped addresses:
+- it gathers the SH rows out of `sh_host` by ids on the card
+  (`utils/hostmem.gather_rows_pinned`, csrc/pinned_gather.cu): the first
+  fetch and the eval by the filter's ids, the advance by the arriving rows'
+  ids, which go up with its maps. No host gather, no staging slot and no
+  row upload; each gather runs on the compute stream, so it is ordered
+  before its camera's gradients go down and thus before the host Adam
+  rewrites any row it reads;
+- it adds the leaving gradient rows into `sh_grad_host` by ids on the card
+  (`utils/hostmem.scatter_add_rows_pinned`, csrc/pinned_scatter.cu), on the
+  comm stream after the compute stream's work: a flush by the camera's
+  filter ids, an advance's leaving rows by those ids at the positions its
+  maps already carry up. No download slot and no host scatter; the drain
+  waits for the scatter's event, then submits the finish set's host Adam.
+  The rows of a launch are unique, and a row a finish set hands to the host
+  Adam is written by no later launch of the batch.
+`h2d_bytes` counts the rows the gather reads as an upload's, and the rows
+the scatter reads back for its add as well; `d2h_bytes` the rows it writes.
 
 Copies run on a comm stream created with --comm_stream_priority. The
 compute stream waits for each upload through an event, the comm stream for
@@ -416,6 +427,25 @@ def _download(ctx: ClmContext, rows: torch.Tensor):
     return host, landed
 
 
+def _scatter(ctx: ClmContext, rows: torch.Tensor, ids_dev: torch.Tensor):
+    """Under card_gather: the (n, 48) gradient `rows` added into sh_grad_host
+    at `ids_dev` (unique ids on the rows' device) by the card, on the comm
+    stream after the compute stream's work so far; returns (None, the event
+    the host waits on before it reads the rows, or None on the CPU, where
+    the add is done on return)."""
+    if ctx.comm is None:
+        hostmem.scatter_add_rows_pinned(ctx.sh_grad_host, rows, ids_dev)
+        return None, None
+    ctx.comm.wait_stream(torch.cuda.current_stream(ctx.device))
+    with torch.cuda.stream(ctx.comm):
+        hostmem.scatter_add_rows_pinned(ctx.sh_grad_host, rows, ids_dev)
+        landed = torch.cuda.Event()
+        landed.record(ctx.comm)
+    rows.record_stream(ctx.comm)
+    ids_dev.record_stream(ctx.comm)
+    return None, landed
+
+
 def _fetch(ctx: ClmContext, ids_dev: torch.Tensor, ids_host=None) -> torch.Tensor:
     """The SH rows `ids_dev` (ids on the batch's device) on that device:
     under card_gather gathered there out of sh_host, else gathered on the
@@ -448,12 +478,13 @@ def _advance_rows(shc, grad_buf, h_dev, maps, n_next: int):
     return shc_next, grad_next, grad_buf[maps[2 * n_next:]]
 
 
-def _advance(ctx: ClmContext, shc, grad_buf, prev_ids, next_ids):
+def _advance(ctx: ClmContext, shc, grad_buf, prev_ids, next_ids, prev_dev=None):
     """Advance the working set from the camera with `prev_ids` to the one
     with `next_ids` (host ids). Returns (next SH rows, their carried
-    gradients, the gradient rows that leave, their ids). Under card_gather
-    the arriving rows' ids go up after the maps and the card gathers the
-    rows by them."""
+    gradients, the gradient rows that leave, their ids: on the host, or
+    under card_gather on the card, `prev_dev` (prev_ids there) at the
+    leaving positions of the uploaded maps). Under card_gather the arriving
+    rows' ids go up after the maps and the card gathers the rows by them."""
     parts, h_ids = _transition(prev_ids, next_ids)
     n_next, gp = len(next_ids), parts[2]
     if ctx.card_gather:
@@ -467,8 +498,10 @@ def _advance(ctx: ClmContext, shc, grad_buf, prev_ids, next_ids):
     if ctx.card_gather:
         h_dev = _fetch(ctx, maps_dev[g_end:])  # the arriving ids
     ctx.h2d_bytes += _nbytes(h_dev) + _nbytes(maps)
-    shc_next, grad_next, g_out = _advance_rows(shc, grad_buf, h_dev,
-                                               maps_dev[:g_end].long(), n_next)
+    maps_dev = maps_dev[:g_end].long()
+    shc_next, grad_next, g_out = _advance_rows(shc, grad_buf, h_dev, maps_dev, n_next)
+    if ctx.card_gather:
+        return shc_next, grad_next, g_out, prev_dev[maps_dev[2 * n_next:]]
     return shc_next, grad_next, g_out, prev_ids[gp.long()]
 
 
@@ -498,14 +531,15 @@ def _sum_over_data(ctx: ClmContext, ids):
 
 def _drain(ctx: ClmContext, pending, futures, grad_scale: float, step: int,
            stop_update: bool):
-    """Wait for one download, scatter-add its rows into the host gradients,
-    sum the finish set over the data group where the chains split the
-    batch, then submit the finish set whose last gradients those were."""
+    """Wait for one download and scatter-add its rows into the host
+    gradients (under card_gather: wait for the card's scatter-add), sum the
+    finish set over the data group where the chains split the batch, then
+    submit the finish set whose last gradients those were."""
     host, landed, ids, rows, summed = pending
     if landed is not None:
         landed.synchronize()
     t0 = time.perf_counter()
-    if len(ids):
+    if host is not None and len(ids):
         native.scatter_add_rows(ctx.sh_grad_host, host, ids)
     ctx.scatter_work_s += time.perf_counter() - t0
     if summed is not None and len(summed) and not stop_update:
@@ -588,7 +622,9 @@ def train_one_batch(state, opt_state, ctx: ClmContext, cams, gt, sh_degree,
     acc = oc.make_clm_acc(p)
     campos = cams.camtoworlds[:, :3, 3]
     losses, futures = [], []
-    pending = None  # (host rows, landed event, their ids, finish rows, rows to sum)
+    # (host rows or None after the card's scatter, landed event, their ids,
+    # finish rows, rows to sum)
+    pending = None
     shc = grad_buf = None  # the working set's SH rows and gradients
     S = len(order) // n_chains
     mine = order[chain * S:(chain + 1) * S]
@@ -618,13 +654,17 @@ def train_one_batch(state, opt_state, ctx: ClmContext, cams, gt, sh_degree,
         if cfg.tpu.retention and pos + 1 < S:
             tm.start("clm.advance")
             shc, grad_buf, g_out, g_ids = _advance(ctx, shc, grad_buf, ids_h,
-                                                   ids_host[int(mine[pos + 1])])
+                                                   ids_host[int(mine[pos + 1])], F.ids[cam])
             tm.stop("clm.advance")
         else:  # the last camera, or retention off: flush the whole set
-            g_out, g_ids = grad_buf, ids_h
+            g_out, g_ids = grad_buf, (F.ids[cam] if ctx.card_gather else ids_h)
             shc = grad_buf = None
         ctx.d2h_bytes += _nbytes(g_out)
-        new_pending = (*_download(ctx, g_out), g_ids, rows, summed)
+        if ctx.card_gather:  # the scatter reads each row back for its add
+            ctx.h2d_bytes += _nbytes(g_out)
+            new_pending = (*_scatter(ctx, g_out, g_ids), g_ids, rows, summed)
+        else:
+            new_pending = (*_download(ctx, g_out), g_ids, rows, summed)
         if pending is not None:
             tm.start("clm.d2h_scatter")
             _drain(ctx, pending, futures, grad_scale, step, stop_update)

@@ -4,7 +4,11 @@
 ``train_step`` is the reference's one-camera-at-a-time path (``G = 1``,
 no_offload.py:81-126): ``batch_grads`` runs each camera's render -> loss ->
 backward, the parameter gradients accumulate in ``.grad``, and after the
-loop they are divided by the batch size before (selective) Adam. ``eval_one_cam`` and
+loop they are divided by the batch size before (selective) Adam. With
+``micro_group=G`` (a keyword; no flag sets it, as in the JAX package) the
+loop runs over groups of G cameras instead: one `render_cams` (projection
+and SH batched, compositing per camera), the group's losses summed, one
+backward. ``eval_one_cam`` and
 ``eval_batch`` are the eval renders of the training loop (train.py).
 """
 
@@ -16,7 +20,8 @@ import torch
 
 from clm_gs_tpu_torch.models.gaussians import GaussianParams, GaussianState
 from clm_gs_tpu_torch.optim import AdamConfig, AdamState, adam_step
-from clm_gs_tpu_torch.strategies.base import photometric_loss, render_one_cam
+from clm_gs_tpu_torch.strategies.base import (photometric_loss, photometric_loss_batch,
+                                              render_cams, render_one_cam)
 
 
 class StepOut(NamedTuple):
@@ -38,6 +43,14 @@ class BatchGrads(NamedTuple):
     n_isects: Tuple[int, ...]  # per camera, as binned
 
 
+def group_size(micro_group: int, bsz: int) -> int:
+    """The cameras a group of `train_step(micro_group=...)` renders (the JAX
+    package's G): micro_group when 0 < G < bsz, bsz when G >= bsz, 1 when
+    0, and 1 when G does not divide bsz."""
+    G = micro_group if 0 < micro_group < bsz else (bsz if micro_group else 1)
+    return G if bsz % G == 0 else 1
+
+
 def batch_grads(
     params: GaussianParams,
     alive: torch.Tensor,
@@ -50,10 +63,13 @@ def batch_grads(
     accumulate_stats: bool = True,
     lambda_dssim: float = 0.2,
     loss_scale: float = 1.0,
+    micro_group: int = 0,
 ) -> BatchGrads:
     """The camera loop of a step without the optimizer: each camera runs
     render -> loss -> backward and the parameter gradients accumulate
-    (naive_offload.py:124-170 runs the same loop)."""
+    (naive_offload.py:124-170 runs the same loop); with G = `group_size(
+    micro_group, B)` above 1, each group of G cameras runs `render_cams`,
+    the sum of its losses and one backward."""
     C = params.capacity
     dev = params.xyz.device
     leaf = GaussianParams(
@@ -65,25 +81,40 @@ def batch_grads(
     vis_count = torch.zeros(C, device=dev)
     n_isects = []
     half_wh = torch.tensor([width * 0.5, height * 0.5], device=dev)
-    for b in range(gt_images.shape[0]):
-        out = render_one_cam(
-            leaf, alive, cams.viewmats[b], cams.Ks[b], cams.camtoworlds[b, :3, 3],
-            sh_degree, width, height, background,
-        )
+    bsz = gt_images.shape[0]
+    G = group_size(micro_group, bsz)
+    for b in range(0, bsz, G):
+        if G == 1:
+            out = render_one_cam(
+                leaf, alive, cams.viewmats[b], cams.Ks[b], cams.camtoworlds[b, :3, 3],
+                sh_degree, width, height, background,
+            )
+            cam_losses = photometric_loss(out.image, gt_images[b], lambda_dssim,
+                                          loss_scale)[None]
+            n_isects.append(out.n_isects)
+        else:
+            g = slice(b, b + G)
+            out = render_cams(leaf, alive, cams.viewmats[g], cams.Ks[g],
+                              cams.camtoworlds[g, :3, 3], sh_degree, width, height,
+                              background)
+            cam_losses = photometric_loss_batch(out.images, gt_images[g], lambda_dssim,
+                                                loss_scale)
+            n_isects.extend(out.n_isects)
         out.means2d.retain_grad()
-        loss = photometric_loss(out.image, gt_images[b], lambda_dssim, loss_scale)
-        loss.backward()
-        losses.append(loss.detach())
-        vis = out.radii > 0
-        vis_any |= vis
-        n_isects.append(out.n_isects)
+        # one backward of the group's summed losses: the gradients
+        # accumulate over its cameras as over single cameras
+        cam_losses.sum().backward()
+        losses.extend(cam_losses.detach())
+        vis = (out.radii > 0).reshape(-1, C)  # (G, C)
+        vis_any |= vis.any(dim=0)
         if accumulate_stats:
             g2d = out.means2d.grad
             if g2d is None:
-                g2d = torch.zeros(C, 2, device=dev)
+                g2d = torch.zeros_like(out.means2d)
             visf = vis.float()
-            grad_norm_sum += torch.linalg.norm(g2d * half_wh, dim=-1) * visf
-            vis_count += visf
+            grad_norm_sum += (torch.linalg.norm(g2d.reshape(-1, C, 2) * half_wh, dim=-1)
+                              * visf).sum(dim=0)
+            vis_count += visf.sum(dim=0)
     grads = GaussianParams(
         *(p.grad if p.grad is not None else torch.zeros_like(p)
           for p in leaf.astuple())
@@ -108,14 +139,17 @@ def train_step(
     lambda_dssim: float = 0.2,
     loss_scale: float = 1.0,
     stop_update_param: bool = False,
+    micro_group: int = 0,
 ):
-    """One batched iteration (bsz = B cameras).
-    Returns (state, opt_state, StepOut)."""
+    """One batched iteration (bsz = B cameras), the cameras rendered in
+    groups of `group_size(micro_group, B)` (module docstring; one at a time
+    by default). Returns (state, opt_state, StepOut)."""
     params = state.params
     alive = state.alive
     bsz = gt_images.shape[0]
     bg = batch_grads(params, alive, cams, gt_images, sh_degree, background,
-                     width, height, accumulate_stats, lambda_dssim, loss_scale)
+                     width, height, accumulate_stats, lambda_dssim, loss_scale,
+                     micro_group)
     if stop_update_param:
         new_params, new_opt = params, opt_state
     else:

@@ -16,8 +16,9 @@ on the host (the state carries a (1, 48) SH placeholder; densification
 replays its row moves on the host, PLY saves read the host rows, each eval
 camera gathers its visible rows, and the worker thread of the host Adam is
 shut down when the run ends; with --pinned_host the card gathers the rows
-out of the pinned host buffer itself, and under the other strategies the
-flag changes nothing). The port sizes its instance buffers to each
+out of the pinned host buffer itself and adds their gradients into the
+pinned gradient buffer, and under the other strategies the flag changes
+nothing). The port sizes its instance buffers to each
 camera's true count, so the JAX package's `isect_cap`/`vis_cap`/`gather_cap`
 adaptation has no counterpart here.
 
@@ -267,10 +268,12 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
             state = M.shard_state(state, mesh)
             strategy.shard_context(strategy_ctx, mesh)
         if cfg.tpu.pinned_host:
-            how = ("csrc/pinned_gather.cu" if device.type == "cuda"
-                   else "its plain version on the CPU")
-            logger.write("pinned_host: card-side SH gather on: the device reads the "
-                         f"rows it fetches out of the pinned host buffer ({how})\n")
+            how = ("csrc/pinned_gather.cu and csrc/pinned_scatter.cu"
+                   if device.type == "cuda" else "their plain versions on the CPU")
+            logger.write("pinned_host: card-side SH gather and gradient scatter on: the "
+                         "device reads the rows it fetches out of the pinned host buffer "
+                         "and adds the gradients of the rows it drops into the pinned "
+                         f"gradient buffer ({how})\n")
 
     def scalar(v, dev=device):
         return torch.tensor(v, dtype=torch.float32, device=dev)

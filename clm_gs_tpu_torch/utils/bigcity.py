@@ -13,7 +13,8 @@ clm_offload's working sets exist for.
     python -m clm_gs_tpu_torch.utils.bigcity make ROOT --n N \
         [--cams 64 --width 640 --height 400 --degrade 0.3,0.15]
     python -m clm_gs_tpu_torch.utils.bigcity run ROOT OUT --iters I \
-        [--no_offload | --naive_offload] [--device_loop] [-- TRAIN FLAGS]
+        [--no_offload | --naive_offload] [--device_loop [--pinned_ab]]
+        [-- TRAIN FLAGS]
     python -m clm_gs_tpu_torch.utils.bigcity collect OUT
 
 `make` draws the Gaussians and cameras from numpy's RandomState(11) (the
@@ -28,7 +29,9 @@ the CLI's eval would log it at iteration 0. `run` trains the scene with
 `train_args` (BIGCITY_ARGS: the flags of bigcity.sh) through
 `clm_gs_tpu_torch.train.main`; with --device_loop it then times one batch
 of the final state in situ against `clm_offload.prepare_device_loop`'s
-replay of the same batch (the card's share). Both print one JSON line.
+replay of the same batch (the card's share), and with --pinned_ab one more
+batch on the host path against the same batch with --pinned_host, from one
+start, to the bit. Both print one JSON line.
 `collect` reads a run's python.log. Every entry point runs on the card
 unless the caller passes device="cpu".
 """
@@ -418,7 +421,7 @@ def train_args(root, out, iters: int, n: int, strategy: str = "clm_offload"):
 
 
 def run(root, out, iters: int, strategy: str = "clm_offload", extra=(),
-        device_loop: bool = False, device="cuda"):
+        device_loop: bool = False, device="cuda", pinned_ab: bool = False):
     """Train the scene at `root` (`train_args`, then `extra` flags, which
     override) into `out`. Returns what `collect` reads from the log, and the
     kernels' launches, the peak device bytes (the whole run's) and
@@ -427,7 +430,7 @@ def run(root, out, iters: int, strategy: str = "clm_offload", extra=(),
     run, its peak sampled every RSS_SAMPLE_S within the set-up (the load)
     and over the run, and its peak as the kernel keeps it, and the PLY
     saves' seconds and the RSS sampled within them; with `device_loop`,
-    also `device_loop_split` of the final state."""
+    also `device_loop_split` of the final state (with its `pinned_ab`)."""
     from clm_gs_tpu_torch import _build
     from clm_gs_tpu_torch.models import gaussians as G
     from clm_gs_tpu_torch.train import main as train_main
@@ -501,7 +504,8 @@ def run(root, out, iters: int, strategy: str = "clm_offload", extra=(),
         holder = [state]
         del state
         gc.collect()  # the run's context, before a new one takes its place
-        result["device_loop"] = device_loop_split(root, holder, argv, device)
+        result["device_loop"] = device_loop_split(root, holder, argv, device,
+                                                  pinned_ab=pinned_ab)
     return result
 
 
@@ -522,15 +526,16 @@ def _batch(root, bsz: int, llffhold: int, device):
     return stack_cameras(cams, device=device), gt, [c.image_name for c in cams]
 
 
-def device_loop_split(root, holder, argv, device, reps: int = 3):
+def device_loop_split(root, holder, argv, device, reps: int = 3, pinned_ab: bool = False):
     """The card's share of one batch of the final state: one batch of bsz
     training cameras run in situ by `clm_offload.train_one_batch` with
     --stop_update_param (its last camera's loss is the reference), then
     `prepare_device_loop`'s replay of the same batch timed (`reps` runs
     after one warm-up), then the in-situ batch with updates timed with the
-    clm spans. `holder` is a list holding the state `train.main` returns
-    (its SH field the run's host buffer, which a new context takes over),
-    popped so that the caller keeps no reference to the state."""
+    clm spans; with `pinned_ab`, then `_pinned_ab` from where that batch
+    left the state. `holder` is a list holding the state `train.main`
+    returns (its SH field the run's host buffer, which a new context takes
+    over), popped so that the caller keeps no reference to the state."""
     from clm_gs_tpu_torch.config import parse_config
     from clm_gs_tpu_torch.optim import AdamConfig, init_adam, sh_column_lr
     from clm_gs_tpu_torch.strategies import clm_offload as clm
@@ -605,6 +610,10 @@ def device_loop_split(root, holder, argv, device, reps: int = 3):
         batch_s = time.perf_counter() - t0
         moved = [ctx.h2d_bytes - h2d0, ctx.d2h_bytes - d2h0, ctx.trailing_s - trail0]
         spans = {k: v[0] for k, v in _timer_sums(timers).items()}
+        ab = None
+        if pinned_ab:
+            ab = _pinned_ab(state, opt, ctx, lambda s, o, c, tm: clm.train_one_batch(
+                s, o, c, cb, gt, sh_degree, lrs, adam_cfg, bg, W, H, cfg, timers=tm), sync)
     finally:
         ctx.close()
     replay_s = float(np.median(replay))
@@ -619,7 +628,85 @@ def device_loop_split(root, holder, argv, device, reps: int = 3):
         "batch_spans_ms": spans, "batch_h2d_bytes": moved[0], "batch_d2h_bytes": moved[1],
         "batch_trailing_s": moved[2],
         "unique_cameras": len(set(names)),
+        "pinned_ab": ab,
     }
+
+
+def _clone(obj):
+    """A copy of a state or optimizer state, every tensor cloned."""
+    import dataclasses
+
+    if torch.is_tensor(obj):
+        return obj.clone()
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{f.name: _clone(getattr(obj, f.name))
+                                           for f in dataclasses.fields(obj)})
+    return obj
+
+
+def _digest(t: torch.Tensor) -> str:
+    """blake2b of a contiguous CPU tensor's bytes, its 256 MiB blocks hashed
+    on 8 threads and the blocks' digests hashed again."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    buf = memoryview(t.contiguous().numpy()).cast("B")
+    step = 1 << 28
+    with ThreadPoolExecutor(8) as ex:
+        parts = ex.map(lambda i: hashlib.blake2b(buf[i:i + step]).digest(),
+                       range(0, len(buf), step))
+        return hashlib.blake2b(b"".join(parts)).hexdigest()
+
+
+def _pinned_ab(state, opt, ctx, batch, sync) -> dict:
+    """One batch on the host path (ctx.card_gather off: the host gather and
+    upload, the download and host scatter) and one with --pinned_host's
+    card-side gather and scatter, each from the same start: a clone of the
+    card state and moments, the host SH rows and both moments restored.
+    `batch(state, opt, ctx, timers)` runs one. Returns each run's seconds,
+    clm spans, bytes each way, trailing seconds and kernel launches, and
+    whether the pinned run equals the host run to the bit: losses, the card
+    groups, both card moments and the statistics (torch.equal), and the
+    host SH rows and both moments (`_digest`)."""
+    from clm_gs_tpu_torch import _build
+    from clm_gs_tpu_torch.utils.timer import Timer
+
+    host_bufs = lambda: (ctx.sh_host, ctx.adam.exp_avg, ctx.adam.exp_avg_sq)
+    start = [t.clone() for t in host_bufs()]
+    step0, card0 = ctx.adam.step_count, ctx.card_gather
+    runs, outs = {}, {}
+    try:
+        for name, card in (("host", False), ("pinned", True)):
+            if card:  # the host run started from `start` itself
+                for buf, t in zip(host_bufs(), start):
+                    buf.copy_(t)
+            ctx.adam.step_count = step0
+            ctx.card_gather = card
+            s, o = _clone(state), _clone(opt)
+            timers = Timer(enabled=True)
+            h2d0, d2h0, trail0 = ctx.h2d_bytes, ctx.d2h_bytes, ctx.trailing_s
+            sync()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            s, o, ctx, out = batch(s, o, ctx, timers)
+            sync()
+            runs[name] = {
+                "batch_s": time.perf_counter() - t0,
+                "spans_ms": {k: v[0] for k, v in _timer_sums(timers).items()},
+                "h2d_bytes": ctx.h2d_bytes - h2d0, "d2h_bytes": ctx.d2h_bytes - d2h0,
+                "trailing_s": ctx.trailing_s - trail0, "launches": dict(_build.LAUNCHES)}
+            outs[name] = (out.losses, s, o, [_digest(t) for t in host_bufs()])
+    finally:
+        ctx.card_gather = card0
+    (lh, sh_, oh, dh), (lp, sp, op, dp) = outs["host"], outs["pinned"]
+    equal = {"losses": torch.equal(lh, lp),
+             "host_sh_and_moments": dh == dp,
+             "statistics": torch.equal(sh_.xyz_grad_accum, sp.xyz_grad_accum)
+             and torch.equal(sh_.denom, sp.denom)}
+    for f in ("xyz", "opacity", "log_scale", "quat"):
+        equal[f] = all(torch.equal(getattr(a, f), getattr(b, f))
+                       for a, b in ((sh_.params, sp.params), (oh.mu, op.mu), (oh.nu, op.nu)))
+    return {"runs": runs, "equal": equal}
 
 
 def _timer_sums(timers):
@@ -695,6 +782,9 @@ def main(argv=None, device="cuda") -> dict:
     which.add_argument("--naive_offload", action="store_true")
     rn.add_argument("--device_loop", action="store_true",
                     help="then time one batch in situ against its device-loop replay")
+    rn.add_argument("--pinned_ab", action="store_true",
+                    help="with --device_loop: then one batch on the host path against "
+                         "one with --pinned_host, from one start")
     co = sub.add_parser("collect", help="read a run's python.log")
     co.add_argument("out")
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -710,7 +800,7 @@ def main(argv=None, device="cuda") -> dict:
         strategy = ("no_offload" if args.no_offload else
                     "naive_offload" if args.naive_offload else "clm_offload")
         res = run(args.root, args.out, args.iters, strategy, extra, args.device_loop,
-                  device)
+                  device, args.pinned_ab)
     else:
         res = collect(args.out)
     print(json.dumps(res), flush=True)

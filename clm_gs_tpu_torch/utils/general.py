@@ -75,6 +75,15 @@ def np_sigmoid(x):
     return 1.0 / (1.0 + np.exp(-x))
 
 
+def drop_duplicate_gaussians(xyz, coeff: float = 1.0) -> np.ndarray:
+    """Ascending indices of the unique positions of (N, 3) `xyz` (numpy or a
+    tensor) after scaling by `coeff` and rounding to 6 decimals: the first
+    row of each group of duplicates (a debug helper)."""
+    key = np.round(np.asarray(xyz) * coeff, 6)
+    _, idx = np.unique(key, axis=0, return_index=True)
+    return np.sort(idx)
+
+
 def psnr(img, gt):
     mse = torch.mean((img - gt) ** 2)
     return -10.0 * torch.log10(mse)

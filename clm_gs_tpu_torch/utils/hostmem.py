@@ -1,19 +1,26 @@
-"""The card-side SH row gather out of pinned host memory: clm_offload's
-`--pinned_host` transport (clm_gs_tpu/utils/hostmem.py).
+"""clm_offload's `--pinned_host` transport (clm_gs_tpu/utils/hostmem.py):
+the card reads the SH rows out of pinned host memory, and adds the SH
+gradients into it, through the memory's mapped address.
 
-The reference CLM-GS's send_shs2gpu_stream gathers the visible SH rows
-straight out of a pinned host buffer by an index list on the card. The JAX
-package compiles that gather as an XLA program over a mirror of the table in
-the `pinned_host` memory space (`PinnedShTable`, hostmem.py:86-132), keeps
-the mirror in step with its canonical numpy buffer (`refresh`,
-`update_rows`), and probes the backend first (`probe()`), falling back to
-the host gather where it refuses. Here the canonical buffer
-(`ClmContext.sh_host`) is itself pinned, so the card reads it in place
-through its mapped address: there is no mirror, nothing to refresh and no
-probe. `gather_rows_pinned` launches csrc/pinned_gather.cu for ids on the
-card; a table the card cannot map raises, and nothing falls back to the host
-gather. The D2H direction (`PinnedGradBuffer`, hostmem.py:135) is not
-ported: the JAX package does not use it either.
+The reference CLM-GS moves the SH stream in both directions by device index
+lists over pinned host buffers: send_shs2gpu_stream gathers the visible SH
+rows, and send_shs2cpu_grad_buffer_stream scatter-adds the gradient rows
+that leave the working set into the pinned gradient buffer. The JAX package
+compiles both as XLA programs over tables in the `pinned_host` memory space:
+the gather over a mirror of the SH table (`PinnedShTable`,
+hostmem.py:86-132), kept in step with its canonical numpy buffer
+(`refresh`, `update_rows`) after a probe of the backend (`probe()`), and the
+scatter-add over a donated gradient table (`PinnedGradBuffer`,
+hostmem.py:135-190), which it leaves out of clm's drain because its backend
+cannot share the donated table with the host Adam that consumes its rows.
+Here the canonical buffers are themselves pinned (`ClmContext.sh_host` and
+`sh_grad_host`), so the card reads and writes them in place: no mirror,
+nothing to refresh, no probe, and the host Adam updates the same memory.
+`gather_rows_pinned` launches csrc/pinned_gather.cu and
+`scatter_add_rows_pinned` csrc/pinned_scatter.cu for tensors on the card;
+on the CPU each takes its plain version. A table the card cannot map
+raises, and nothing falls back to the host gather or the host scatter.
+`PinnedGradBuffer` is the JAX class's counterpart over the scatter.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ COLS = 48  # the SH row width, the only one the kernel takes
 _PTR_ARGTYPES = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)]
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+_SCATTER_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 # csrc/pinned_gather.cu's status codes besides cudaError values
 _NOT_PINNED_HOST = -1
 _NO_DEVICE_POINTER = -2
@@ -69,14 +78,14 @@ def _unregister(ptr: int):
     torch.cuda.cudart().cudaHostUnregister(ptr)
 
 
-def _check_table(sh_host: torch.Tensor):
+def _check_table(sh_host: torch.Tensor, name="sh_host"):
     if not torch.is_tensor(sh_host) or sh_host.device.type != "cpu":
-        raise ValueError("sh_host must be a CPU tensor")
+        raise ValueError(f"{name} must be a CPU tensor")
     if sh_host.dtype != torch.float32 or sh_host.ndim != 2 or sh_host.shape[1] != COLS:
-        raise ValueError(f"sh_host must be (C, {COLS}) float32, not "
+        raise ValueError(f"{name} must be (C, {COLS}) float32, not "
                          f"{tuple(sh_host.shape)} {sh_host.dtype}")
     if not sh_host.is_contiguous():
-        raise ValueError("sh_host must be C-contiguous")
+        raise ValueError(f"{name} must be C-contiguous")
 
 
 def gather_rows_pinned_plain(sh_host: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -86,7 +95,7 @@ def gather_rows_pinned_plain(sh_host: torch.Tensor, ids: torch.Tensor) -> torch.
     return sh_host[ids.cpu().long()].to(ids.device)
 
 
-def _device_address(sh_host: torch.Tensor, device) -> int:
+def _device_address(sh_host: torch.Tensor, device, name="sh_host") -> int:
     """The card's address of the pinned `sh_host`'s first element, looked up
     with cudaPointerGetAttributes at the start of its storage (the caching
     host allocator's block) plus the tensor's offset. Raises unless the
@@ -97,9 +106,9 @@ def _device_address(sh_host: torch.Tensor, device) -> int:
     with torch.cuda.device(device):
         err = lookup(ctypes.c_void_p(base), ctypes.byref(dev))
     if err == _NOT_PINNED_HOST:
-        raise ValueError("sh_host is not in pinned host memory")
+        raise ValueError(f"{name} is not in pinned host memory")
     if err == _NO_DEVICE_POINTER:
-        raise RuntimeError(f"{device} cannot address the pinned sh_host")
+        raise RuntimeError(f"{device} cannot address the pinned {name}")
     if err != 0:
         raise RuntimeError(f"cudaPointerGetAttributes failed: cudaError {err}")
     return dev.value + (sh_host.data_ptr() - base)
@@ -139,3 +148,105 @@ def gather_rows_pinned(sh_host: torch.Tensor, ids: torch.Tensor) -> torch.Tensor
     if ids.device.type == "cuda":
         return gather_rows_pinned_cuda(sh_host, ids)
     return gather_rows_pinned_plain(sh_host, ids)
+
+
+def scatter_add_rows_pinned_plain(grad_host: torch.Tensor, rows: torch.Tensor,
+                                  ids: torch.Tensor, accumulate: bool = True):
+    """(n, 48) `rows` added into rows `ids` of the (C, 48) host table (stored
+    there when not `accumulate`), the plain version: the rows and ids
+    brought to the host and `index_add_` (a duplicate id adds each of its
+    rows) or an assignment."""
+    _check_table(grad_host, "grad_host")
+    ids = ids.cpu().long()
+    if accumulate:
+        grad_host.index_add_(0, ids, rows.cpu())
+    else:
+        grad_host[ids] = rows.cpu()
+
+
+def scatter_add_rows_pinned_cuda(grad_host: torch.Tensor, rows: torch.Tensor,
+                                 ids: torch.Tensor, accumulate: bool = True):
+    """The same through csrc/pinned_scatter.cu: `grad_host` pinned, `rows`
+    (n, 48) float32 and `ids` int32 or int64 on one card, the ids unique
+    (the kernel has no atomics: a duplicate id leaves its row undefined).
+    The card reads each row of the table over the bus, adds, and writes it
+    back, on the rows' current stream; the host may read the rows once that
+    stream's work so far is done (an event recorded after the call).
+
+    Replaces hostmem.py:135 PinnedGradBuffer.offload of the reference. The
+    address is looked up on every call, as the caller's table is replaced
+    when it grows. An id outside [0, C) makes the kernel trap, and the next
+    synchronisation raises."""
+    dev = rows.device
+    if dev.type != "cuda":
+        raise ValueError("scatter_add_rows_pinned_cuda takes rows on the card")
+    _check_table(grad_host, "grad_host")
+    if ids.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"ids have dtype {ids.dtype}, expected int32 or int64")
+    n = ids.shape[0]
+    _build.require(ids, "ids", ids.dtype, (n,), dev)
+    _build.require(rows, "rows", torch.float32, (n, COLS), dev)
+    if n == 0:
+        return
+    table = _device_address(grad_host, dev, "grad_host")
+    _build.launch("pinned_scatter", "clmgs_pinned_scatter", _SCATTER_ARGTYPES, dev,
+                  ctypes.c_void_p(table), grad_host.shape[0], _build.ptr(ids),
+                  int(ids.dtype == torch.int64), n, _build.ptr(rows), int(accumulate))
+
+
+def scatter_add_rows_pinned(grad_host: torch.Tensor, rows: torch.Tensor, ids: torch.Tensor,
+                            accumulate: bool = True):
+    """`rows` added into rows `ids` of the host table: rows on the card
+    launch the kernel, rows on the CPU take the plain version."""
+    if rows.device.type == "cuda":
+        return scatter_add_rows_pinned_cuda(grad_host, rows, ids, accumulate)
+    return scatter_add_rows_pinned_plain(grad_host, rows, ids, accumulate)
+
+
+class PinnedGradBuffer:
+    """(C, 48) float32 SH-gradient accumulator in host memory, fed by
+    gradient rows on the card: the D2H direction of the transport
+    (hostmem.py:135 of the reference, its kind="pinned_host").
+
+    `offload(g, idx)` adds g[:len(idx)] into rows `idx`: through the kernel,
+    on g's current stream, when g is on the card (the table is then
+    pinned, `pinned_zeros`), else by the plain version. `reset_rows`
+    zeroes rows (the host Adam's consumed rows) and `to_numpy` returns the
+    table as a numpy view; both wait for the last offload first. Ids are
+    unique within an offload on the card; the plain version also sums
+    duplicates."""
+
+    def __init__(self, shape, device="cuda"):
+        self.device = torch.device(device)
+        self.table = (pinned_zeros(shape) if self.device.type == "cuda"
+                      else torch.zeros(shape, dtype=torch.float32))
+        self._done = None  # the event behind the last offload on the card
+
+    def _ids(self, idx, device) -> torch.Tensor:
+        ids = idx if torch.is_tensor(idx) else torch.from_numpy(
+            np.ascontiguousarray(idx, np.int32))
+        return ids.to(device)
+
+    def offload(self, g: torch.Tensor, idx):
+        n = len(idx)
+        if n == 0:
+            return
+        scatter_add_rows_pinned(self.table, g[:n].contiguous(), self._ids(idx, g.device))
+        if g.device.type == "cuda":
+            self._done = torch.cuda.Event()
+            self._done.record(torch.cuda.current_stream(g.device))
+
+    def _wait(self):
+        if self._done is not None:
+            self._done.synchronize()
+            self._done = None
+
+    def reset_rows(self, idx):
+        if len(idx) == 0:
+            return
+        self._wait()
+        self.table[self._ids(idx, "cpu").long()] = 0.0
+
+    def to_numpy(self) -> np.ndarray:
+        self._wait()
+        return self.table.numpy()

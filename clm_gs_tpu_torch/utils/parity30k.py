@@ -14,6 +14,7 @@ logged at 997, 1997, ...).
 
     python -m clm_gs_tpu_torch.utils.parity30k make ROOT
     python -m clm_gs_tpu_torch.utils.parity30k run ROOT STRATEGY... [--iters N]
+        [--seed S...]
     python -m clm_gs_tpu_torch.utils.parity30k collect OUT.json DIR_OR_RECORD...
 
 `make` writes the scene to ROOT/scene; `run` trains one strategy
@@ -22,7 +23,11 @@ logged at 997, 1997, ...).
 the tool does), writes RUN_INFO there (the card, its power limit, peak
 device bytes, the kernels' launches, the run's seconds) and prints one JSON
 line; with several strategies, each runs in a process of its own, all at
-once (they share the card), and the line lists their lines. `collect`
+once (they share the card), and the line lists their lines. `--seed S`
+passes the training seed (the camera shuffle and the split noise; the
+scene stays seed 3's) and trains into ROOT/run_STRATEGY_sS; with several
+seeds every (strategy, seed) pair runs in a process of its own, all at
+once. `collect`
 writes the record: the tool's keys (the test PSNR at each
 milestone, final Gaussians, densifications, end2end, the last iteration,
 the spread at the highest common milestone and each pair's), and the port's
@@ -55,8 +60,8 @@ def scene_dir(root) -> str:
     return os.path.join(root, "scene")
 
 
-def run_dir(root, strategy) -> str:
-    return os.path.join(root, f"run_{strategy}")
+def run_dir(root, strategy, seed=None) -> str:
+    return os.path.join(root, f"run_{strategy}" + ("" if seed is None else f"_s{seed}"))
 
 
 def make(root, device="cuda") -> str:
@@ -112,34 +117,40 @@ def train_run(argv, out, info_name, device) -> dict:
     return info
 
 
-def run(root, strategy, iters: int = 30000, device="cuda") -> dict:
-    """Train `strategy` on the parity scene into ROOT/run_STRATEGY; returns
-    RUN_INFO's fields and `parse_run` of the log."""
+def run(root, strategy, iters: int = 30000, device="cuda", seed=None) -> dict:
+    """Train `strategy` on the parity scene into `run_dir(root, strategy,
+    seed)`, with --seed `seed` when given; returns RUN_INFO's fields and
+    `parse_run` of the log."""
     if strategy not in STRATEGIES:
         raise ValueError(f"strategy {strategy!r} is not one of {STRATEGIES}")
     scene = scene_dir(root)
     if not os.path.exists(os.path.join(scene, "sparse")):
         make(root, device=device)
-    out = run_dir(root, strategy)
-    info = train_run(train_argv(strategy, iters, scene, out), out, RUN_INFO, device)
-    return {"strategy": strategy, **info, **parse_run(out)}
+    out = run_dir(root, strategy, seed)
+    argv = train_argv(strategy, iters, scene, out)
+    if seed is not None:
+        argv += ["--seed", str(seed)]
+    info = train_run(argv, out, RUN_INFO, device)
+    return {"strategy": strategy, "seed": seed, **info, **parse_run(out)}
 
 
-def run_concurrent(root, strategies, iters: int = 30000, timeout=None) -> dict:
-    """`run` of each strategy in a process of its own (`python -m
-    clm_gs_tpu_torch.utils.parity30k run`), all at once, after `make` in
-    this one if the scene is missing; returns {strategy: its JSON line}.
-    A process that fails raises, and every process is stopped first."""
+def run_concurrent(root, strategies, iters: int = 30000, timeout=None, seeds=(None,)) -> dict:
+    """`run` of each strategy at each seed in a process of its own
+    (`python -m clm_gs_tpu_torch.utils.parity30k run`), all at once, after
+    `make` in this one if the scene is missing; returns {strategy (with
+    `_sS` at seed S): its JSON line}. A process that fails raises, and
+    every process is stopped first."""
     import subprocess
 
     if not os.path.exists(os.path.join(scene_dir(root), "sparse")):
         make(root)
     # the directory that holds the package
     top = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    procs = {s: subprocess.Popen(
+    procs = {s if seed is None else f"{s}_s{seed}": subprocess.Popen(
         [sys.executable, "-m", "clm_gs_tpu_torch.utils.parity30k", "run", root, s,
-         "--iters", str(iters)], cwd=top, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True) for s in strategies}
+         "--iters", str(iters)] + ([] if seed is None else ["--seed", str(seed)]),
+        cwd=top, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for s in strategies for seed in seeds}
     out = {}
     try:
         for s, p in procs.items():
@@ -277,16 +288,18 @@ def main(argv=None, device="cuda") -> dict:
     rn.add_argument("root")
     rn.add_argument("strategy", choices=STRATEGIES, nargs="+")
     rn.add_argument("--iters", type=int, default=30000)
+    rn.add_argument("--seed", type=int, nargs="+", default=[None],
+                    help="training seeds (default: the CLI's, 0)")
     co = sub.add_parser("collect", help="write the record of run directories")
     co.add_argument("out")
     co.add_argument("sources", nargs="+")
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
     if args.cmd == "make":
         res = {"scene": make(args.root, device=device)}
-    elif args.cmd == "run" and len(args.strategy) == 1:
-        res = run(args.root, args.strategy[0], args.iters, device=device)
+    elif args.cmd == "run" and len(args.strategy) == 1 and len(args.seed) == 1:
+        res = run(args.root, args.strategy[0], args.iters, device=device, seed=args.seed[0])
     elif args.cmd == "run":
-        res = run_concurrent(args.root, args.strategy, args.iters)
+        res = run_concurrent(args.root, args.strategy, args.iters, seeds=args.seed)
     else:
         res = collect(args.out, args.sources)
     print(json.dumps(res), flush=True)

@@ -96,9 +96,14 @@ def _no_host_gather(*args, **kwargs):
     raise AssertionError("native.gather_rows called on the --pinned_host path")
 
 
+def _no_host_scatter(*args, **kwargs):
+    raise AssertionError("native.scatter_add_rows called on the --pinned_host path")
+
+
 def _port_batch(pinned, retention):
     """One batch from seeded moments on the CPU; the arriving rows of each
-    transition are counted."""
+    transition are counted, and the gradient rows that go down (downloaded,
+    or under --pinned_host scatter-added by the card)."""
     from tests.test_torch_clm import _result
     from tests.test_torch_naive import T_BG, T_LRS, _cams
     from tests.test_torch_train_step import _inputs
@@ -106,7 +111,7 @@ def _port_batch(pinned, retention):
 
     state_np, opt_np, gts = _inputs()
     cfg, state, opt, ctx = _start(state_np, opt_np, pinned, retention)
-    arriving = []
+    arriving, down = [], []
     real = t_clm._classify_transition
 
     def count(prev_ids, next_ids):
@@ -114,10 +119,19 @@ def _port_batch(pinned, retention):
         arriving.append(len(out[3]))
         return out
 
+    def counted(fn):
+        def wrapper(ctx, rows, *args):
+            down.append(rows.shape[0])
+            return fn(ctx, rows, *args)
+        return wrapper
+
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(t_clm, "_classify_transition", count)
-        if pinned:  # the card path never gathers on the host
+        mp.setattr(t_clm, "_scatter", counted(t_clm._scatter))
+        mp.setattr(t_clm, "_download", counted(t_clm._download))
+        if pinned:  # the card path never gathers or scatters on the host
             mp.setattr(native, "gather_rows", _no_host_gather)
+            mp.setattr(native, "scatter_add_rows", _no_host_scatter)
         try:
             state, opt, ctx, out = t_clm.train_one_batch(
                 state, opt, ctx, _cams(), torch.from_numpy(gts), 3, T_LRS, AdamConfig(),
@@ -125,7 +139,7 @@ def _port_batch(pinned, retention):
         finally:
             ctx.close()
     res = _result(state, opt, ctx, [out.losses.numpy()], out, lambda t: t.numpy().copy())
-    res.update(h2d=ctx.h2d_bytes, d2h=ctx.d2h_bytes, arriving=arriving,
+    res.update(h2d=ctx.h2d_bytes, d2h=ctx.d2h_bytes, arriving=arriving, down=down,
                state_np=state_np, opt_np=opt_np)
     return res
 
@@ -141,10 +155,12 @@ def test_pinned_batch_equals_host_gather_batch(retention):
     for key in ("xyz_grad_accum", "denom", "visible_any"):
         np.testing.assert_array_equal(card[key], host[key])
     # the same bytes each way, apart from the arriving rows' int32 ids,
-    # which go up with the advance's maps
+    # which go up with the advance's maps, and the gradient rows the card's
+    # scatter reads back for its add: as many as go down
     assert card["arriving"] == host["arriving"]
+    assert card["down"] == host["down"] and len(card["down"]) == 4
     assert (len(card["arriving"]) == 3) is retention
-    assert card["h2d"] - host["h2d"] == 4 * sum(card["arriving"])
+    assert card["h2d"] - host["h2d"] == 4 * sum(card["arriving"]) + 192 * sum(card["down"])
     assert card["d2h"] == host["d2h"]
 
 
@@ -271,9 +287,10 @@ def test_cli_pinned_host(tmp_path, strategy):
             runs[bool(flag)] = (log, f.read())
     said = [ln for ln in runs[True][0].splitlines() if ln.startswith("pinned_host:")]
     if strategy == "--clm_offload":
-        assert said == ["pinned_host: card-side SH gather on: the device reads the rows "
-                        "it fetches out of the pinned host buffer (its plain version "
-                        "on the CPU)"]
+        assert said == ["pinned_host: card-side SH gather and gradient scatter on: the "
+                        "device reads the rows it fetches out of the pinned host buffer "
+                        "and adds the gradients of the rows it drops into the pinned "
+                        "gradient buffer (their plain versions on the CPU)"]
     else:
         assert said == []
     assert runs[True][1] == runs[False][1]

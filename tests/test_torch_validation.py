@@ -79,6 +79,27 @@ def test_parity_argv_matches_tool(strategy, tmp_path, monkeypatch):
     assert got[got.index("--test_iterations") + 1:][:2] == ["1000", "2000"]
 
 
+@pytest.mark.parametrize("seed", [None, 4])
+def test_parity_seed_runs_into_its_own_directory(seed, tmp_path, monkeypatch):
+    """`run --seed S` trains into run_STRATEGY_sS with the tool's command
+    and --seed S after it (the scene stays seed 3's); without a seed, the
+    tool's command into run_STRATEGY."""
+    os.makedirs(tmp_path / "scene" / "sparse")
+    calls = []
+    monkeypatch.setattr(P, "train_run",
+                        lambda argv, out, name, device: calls.append((argv, out)) or {})
+    monkeypatch.setattr(P, "parse_run", lambda d: {"reached_iter": None})
+    rec = P.run(str(tmp_path), "naive_offload", 30000, device="cpu", seed=seed)
+    (argv, out), = calls
+    base = P.train_argv("naive_offload", 30000, P.scene_dir(str(tmp_path)), out)
+    if seed is None:
+        assert out == str(tmp_path / "run_naive_offload") and argv == base
+    else:
+        assert out == str(tmp_path / "run_naive_offload_s4")
+        assert argv == base + ["--seed", "4"]
+    assert rec["seed"] == seed and rec["strategy"] == "naive_offload"
+
+
 @pytest.mark.parametrize("iters", [15000, 2000])
 def test_flagship_argv_matches_tool(iters, tmp_path, monkeypatch):
     scene, out = str(tmp_path / "scene"), str(tmp_path / "run")
@@ -315,6 +336,28 @@ def _sh_color_flat():
             np.asarray(jsh.sh_color_flat(jnp.asarray(basis), jnp.asarray(flat))), 1e-5)
 
 
+def _sh_vjp_coeffs():
+    r = _rng()
+    dirs = r.normal(size=(60, 3)).astype(np.float32)
+    v = r.normal(size=(60, 3)).astype(np.float32)
+    return (tsh.spherical_harmonics_vjp_coeffs(2, torch.from_numpy(dirs),
+                                               torch.from_numpy(v)).numpy(),
+            np.asarray(jsh.spherical_harmonics_vjp_coeffs(2, jnp.asarray(dirs),
+                                                          jnp.asarray(v))), 1e-5)
+
+
+def _drop_duplicates():
+    """Rows with duplicates (exact, and equal after rounding at coeff 10)."""
+    r = _rng()
+    xyz = r.normal(size=(50, 3)).astype(np.float32)
+    xyz[[7, 31]] = xyz[3]
+    xyz[40] = xyz[12] + 1e-8
+    got = tgeneral.drop_duplicate_gaussians(torch.from_numpy(xyz), 10.0)
+    want = jgeneral.drop_duplicate_gaussians(xyz, 10.0)
+    assert len(want) < 50
+    return got, want, 0
+
+
 def _masked(name):
     def case():
         r = _rng()
@@ -383,6 +426,8 @@ NAMES = {
     "visibility_mask": _visibility,
     "eval_color": _eval_color,
     "sh_color_flat": _sh_color_flat,
+    "spherical_harmonics_vjp_coeffs": _sh_vjp_coeffs,
+    "drop_duplicate_gaussians": _drop_duplicates,
     **{n: _masked(n) for n in ("l1_loss_pixelwise_masked", "ssim_masked",
                                "pixelwise_l1_with_mask", "pixelwise_ssim_with_mask")},
     "nudge_camera": _nudge,
