@@ -43,8 +43,9 @@ Phases, one JSON line each:
      cameras), parameter moves and first moments, retention against the
      full re-gather, the card-side path against the host path to the bit
      (losses, parameters, first moments, the host SH rows) with the same
-     bytes but the arriving rows' ids and the gradient rows the scatter
-     reads back for its add, the
+     bytes but the arriving rows' ids, a flush's permutation and the
+     gradient rows the scatter reads back for its add (all but the first
+     departures, which it stores into zero slots), the
      bytes of the clm state and card moments against no_offload's (at least
      the SH parameters' and their two moments' less), and for each: a first
      batch, five warm ones taken in turns with the other variants (the
@@ -53,9 +54,12 @@ Phases, one JSON line each:
      plain version on camera 0's visible rows, bit-equal, timed beside the
      host-staged fetch it replaces and bounded by the pinned host-to-card
      copy rate measured in the same call; and the scatter kernel on the
-     same rows, adding and storing, bit-equal over the whole pinned table,
-     timed beside the download and host scatter it replaces, with the
-     card-to-pinned copy rate.
+     same rows, adding, storing, and adding with the first half stored into
+     zero slots, bit-equal over the whole pinned table, timed beside the
+     download and host scatter it replaces, with the card-to-pinned copy
+     rate. Each reports its grid (blocks of the SMs), its share of its
+     bound and 20 matmuls' time beside it against alone (timing, not
+     gated).
   6c. mesh_step: a world-1 NCCL process group and a 1x1 (data x gauss) mesh
      on a fresh copy of phase 4's scene: from the same seeded moments, one
      step of parallel/shard.py's sharded step (compact visible rows, the
@@ -512,7 +516,10 @@ def run(torch, report):
          "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
          "library_ms": None, "host_staged_fetch_ms": g["host_staged_fetch_ms"],
          "bound_rate": g["bound_rates"]["bus"],
-         "h2d_copy_bytes_per_s": g["h2d_bytes_per_s"], "rows": g["rows"]},
+         "h2d_copy_bytes_per_s": g["h2d_bytes_per_s"], "rows": g["rows"],
+         "grid": g["grid"], "share_of_bound": g["share_of_bound"],
+         "matmuls_beside_ratio": {k: g["beside"]["gather"][k]
+                                  for k in ("once_ratio", "stream_ratio")}},
         # the same main path
         {"name": SCATTER, "status": "ported", "route": "cuda", "source": SCATTER_SOURCE[0],
          "replaces": SCATTER_SOURCE[1],
@@ -522,10 +529,23 @@ def run(torch, report):
          "library_ms": None, "store_ms": sc["store_ms"],
          "host_path_ms": sc["host_path_ms"], "bound_rate": sc["bound_rates"]["bus"],
          "d2h_copy_bytes_per_s": sc["d2h_bytes_per_s"], "rows": sc["rows"],
+         "split_half_ms": sc["split_half_ms"], "grid": sc["grid"],
+         "share_of_bound": sc["share_of_bound"],
+         "store_share_of_bound": sc["store_share_of_bound"],
+         "matmuls_beside_ratio": {name: {k: sc["beside"][name][k] for k in (
+             "once_ratio", "stream_ratio")} for name in ("scatter_add", "scatter_store")},
+         "first_departure_share":
+             report["clm_step"]["card_gather_bytes_vs_host"]["warm"]["first_departure_share"],
          "bigcity_rows": sc_city["rows"], "bigcity_ms": sc_city["ms"],
          "bigcity_bound_ms": sc_city["bound_ms"],
+         "bigcity_share_of_bound": sc_city["share_of_bound"],
+         "bigcity_grid": sc_city["grid"],
+         "bigcity_matmuls_beside_ratio": {name: {k: sc_city["beside"][name][k] for k in (
+             "once_ratio", "stream_ratio")} for name in ("scatter_add", "scatter_store")},
          "bigcity_max_abs_err": sc_city["max_abs_err"],
-         "bigcity_host_path_ms": sc_city["host_path_ms"]}
+         "bigcity_host_path_ms": sc_city["host_path_ms"],
+         "bigcity_first_departure_share":
+             report["bigcity"]["pinned_ab"]["first_departure_share"]}
     ]})
 
 
@@ -587,8 +607,11 @@ def summary(report):
             step["card_gather_equal_to_host_gather"].values()),
         "pinned_gather": step["pinned_gather"],
         "pinned_scatter": {k: step["pinned_scatter"][k] for k in (
-            "rows", "ms", "store_ms", "plain_ms", "host_path_ms", "bound_ms",
-            "d2h_bytes_per_s", "exact")}},
+            "rows", "ms", "store_ms", "split_half_ms", "plain_ms", "host_path_ms",
+            "bound_ms", "share_of_bound", "grid", "beside", "d2h_bytes_per_s", "exact")},
+        "first_departure_share": {
+            when: b["first_departure_share"]
+            for when, b in step["card_gather_bytes_vs_host"].items()}},
         "micro_group": {k: report["micro_group"][k] for k in (
             "group", "loss_rel_err", "param_step_rel_err", "grad_rel_err", "step_s")},
         "clm_it_per_s": clm["it_per_s"], "cli_it_per_s": report["cli"]["it_per_s"],
@@ -1673,8 +1696,9 @@ def clm_step(torch, box, lrs, adam_cfg):
 
     arriving = []  # rows arriving at each transition of a batch
     down = []  # gradient rows going down at each camera of a batch
+    permuted = []  # rows of a flush whose int32 permutation went up
     classify = clm._classify_transition
-    download, scatter = clm._download, clm._scatter
+    download, scatter, flush = clm._download, clm._scatter, clm._flush
 
     def counted(prev_ids, next_ids):
         out = classify(prev_ids, next_ids)
@@ -1687,17 +1711,25 @@ def clm_step(torch, box, lrs, adam_cfg):
             return fn(ctx, rows, *args)
         return wrapper
 
+    def counted_flush(ctx, grad_buf, ids_dev, ids_host, departed=None):
+        out = flush(ctx, grad_buf, ids_dev, ids_host, departed)
+        if 0 < out[2] < len(ids_host):
+            permuted.append(len(ids_host))
+        return out
+
     def batch(cfg, ctx, timed):
         """One batch from the seeded start (the state and moments cloned),
         the context reset to it."""
         arriving.clear()
         down.clear()
+        permuted.clear()
         ctx.sh_host.copy_(p0["sh"])
         ctx.sh_grad_host.zero_()
         ctx.adam.exp_avg, ctx.adam.exp_avg_sq = mu0["sh"].clone(), sh_nu0.clone()
         ctx.adam.step_count = int(opt.steps)
         ctx.trailing_s = ctx.scatter_work_s = ctx.adam_work_s = 0.0
         ctx.n_batches = ctx.h2d_bytes = ctx.d2h_bytes = 0
+        ctx.scatter_rows = ctx.stored_rows = 0
         timers = Timer(enabled=timed)
         s1, o1 = _clone(torch, s), _clone(torch, o)  # the batch updates them in place
         torch.cuda.synchronize()
@@ -1723,7 +1755,8 @@ def clm_step(torch, box, lrs, adam_cfg):
             "adam_work_s": ctx.adam_work_s,
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
             "launches": dict(_build.LAUNCHES), "arriving_rows": sum(arriving),
-            "down_rows": sum(down),
+            "down_rows": sum(down), "scatter_rows": ctx.scatter_rows,
+            "stored_rows": ctx.stored_rows, "permuted_rows": sum(permuted),
         }
         if timed:
             run["span_ms"] = {k: timers.sums[k] * 1e3 for k in CLM_SPANS if k in timers.sums}
@@ -1744,6 +1777,7 @@ def clm_step(torch, box, lrs, adam_cfg):
     keys = list(cfgs)
     clm._classify_transition = counted
     clm._download, clm._scatter = counted_down(download), counted_down(scatter)
+    clm._flush = counted_flush
     try:
         for key in keys:
             ctxs[key] = clm.make_context(cfgs[key], state, adam_cfg)
@@ -1755,7 +1789,7 @@ def clm_step(torch, box, lrs, adam_cfg):
         timed = {key: batch(cfgs[key], ctxs[key], True)[0] for key in keys}
     finally:
         clm._classify_transition = classify
-        clm._download, clm._scatter = download, scatter
+        clm._download, clm._scatter, clm._flush = download, scatter, flush
         for ctx in ctxs.values():
             ctx.close()
     runs, finals = {}, {}
@@ -1783,9 +1817,14 @@ def clm_step(torch, box, lrs, adam_cfg):
     bytes_vs_host = {when: {"h2d_minus_host": runs["card_gather"][when]["h2d_bytes"]
                             - runs["retention"][when]["h2d_bytes"],
                             "arriving_id_bytes": 4 * runs["card_gather"][when]["arriving_rows"],
-                            # the rows the scatter reads back for its add
-                            "scatter_read_bytes":
-                                ROW_BYTES * runs["card_gather"][when]["down_rows"],
+                            # the rows the scatter reads back for its add:
+                            # those it does not store into a zero slot
+                            "scatter_read_bytes": ROW_BYTES * (
+                                runs["card_gather"][when]["down_rows"]
+                                - runs["card_gather"][when]["stored_rows"]),
+                            "permutation_bytes": 4 * runs["card_gather"][when]["permuted_rows"],
+                            "first_departure_share": runs["card_gather"][when]["stored_rows"]
+                            / max(1, runs["card_gather"][when]["scatter_rows"]),
                             "d2h_minus_host": runs["card_gather"][when]["d2h_bytes"]
                             - runs["retention"][when]["d2h_bytes"]}
                      for when in ("first", "warm", "timed")}
@@ -1829,8 +1868,12 @@ def clm_step(torch, box, lrs, adam_cfg):
     check(all(card_equal.values()),
           f"clm_step: the card-side gather differs from the host gather: {card_equal}")
     for when, b in bytes_vs_host.items():
-        check(b["h2d_minus_host"] == b["arriving_id_bytes"] + b["scatter_read_bytes"]
+        card_run = runs["card_gather"][when]
+        check(b["h2d_minus_host"] == (b["arriving_id_bytes"] + b["scatter_read_bytes"]
+                                      + b["permutation_bytes"])
               and b["arriving_id_bytes"] > 0 and b["d2h_minus_host"] == 0
+              and 0 < card_run["stored_rows"] <= card_run["scatter_rows"]
+              == card_run["down_rows"]
               and runs["card_gather"][when]["arriving_rows"]
               == runs["retention"][when]["arriving_rows"]
               and runs["card_gather"][when]["down_rows"]
@@ -1899,10 +1942,13 @@ def gather_check(torch, state, cb, w, h, ctxs):
     row_bytes = n * 48 * 4
     t_bus = row_bytes / PEAK_PCIE_H2D * 1e3
     t_hbm = (n * ids.element_size() + row_bytes) / PEAK_BYTES * 1e3
+    ms = time_ms(torch, lambda: hostmem.gather_rows_pinned_cuda(table, ids), reps=10)
     return {
         "rows": n, "table_rows": table.shape[0], "row_bytes": row_bytes,
         "max_abs_err": (k - plain).abs().max().item() if n else 0.0, "exact": exact,
-        "ms": time_ms(torch, lambda: hostmem.gather_rows_pinned_cuda(table, ids), reps=10),
+        "ms": ms, **pinned_grid_report(torch, hostmem.GATHER_BLOCKS, n, ms,
+                                       max(t_bus, t_hbm)),
+        "beside": pinned_beside(torch, table, ids, ("gather",)),
         "plain_ms": wall_ms(torch, lambda: hostmem.gather_rows_pinned_plain(table, ids)),
         "host_staged_fetch_ms": wall_ms(torch, lambda: clm._fetch(host_ctx, None, ids_host)),
         "h2d_copy_ms": copy_ms, "h2d_bytes_per_s": h2d_rate,
@@ -1912,6 +1958,39 @@ def gather_check(torch, state, cb, w, h, ctxs):
         "bound_parts_ms": {"bus": t_bus, "hbm": t_hbm},
         "library_ms": None,
     }
+
+
+def pinned_grid_report(torch, most, n, ms, bound_ms):
+    """A pinned kernel's launch geometry over n rows (hostmem.pinned_grid
+    in at most `most` blocks, capped by this card's SMs) and its share of
+    its bound."""
+    from clm_gs_tpu_torch.utils import hostmem
+
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    blocks, rows_per_block = hostmem.pinned_grid(n, hostmem.launch_blocks(sms, most))
+    return {"grid": {"blocks": blocks, "rows_per_block": rows_per_block,
+                     "threads_per_block": 256, "sms": sms},
+            "share_of_bound": bound_ms / ms}
+
+
+# float32 matmuls of 4096 x 4096 timed beside a pinned kernel
+BESIDE_MATMULS = 20
+
+
+def pinned_beside(torch, table, ids, names, rows=None):
+    """The card beside a pinned kernel (utils/pinned_probe.py `beside`):
+    BESIDE_MATMULS matmuls alone and with the kernels `names` on a side
+    stream, launched once first and back to back, each ratio a median over
+    the median alone; `rows` (the scatter's) default to random ones.
+    Timing, not gated."""
+    from clm_gs_tpu_torch.utils import pinned_probe
+
+    if rows is None:
+        rows = torch.rand((ids.numel(), SH_COLS), device=ids.device)
+    res = pinned_probe.beside(pinned_probe._kernels(table, rows, ids), BESIDE_MATMULS, names)
+    return {k: v if k not in names else {
+        f: v[f] for f in ("kernel_alone_ms", "once_ratio", "stream_ratio",
+                          "stream_kernel_ratio")} for k, v in res.items()}
 
 
 def scatter_check(torch, state, cb, w, h, ctxs):
@@ -1951,15 +2030,19 @@ def scatter_kernel_check(torch, table, ids, reps=10):
     rows = torch.rand((n, SH_COLS), generator=gen, device=dev)
     start = torch.rand(tuple(table.shape), generator=gen, device=dev)
     exact, err = {}, 0.0
-    start_host = start.cpu()
     touched = ids.cpu().long()
-    for name, accumulate in (("add", True), ("store", False)):
+    # the split: the first half of the rows stored into zero slots
+    half = n // 2
+    start[ids[:half].long()] = 0.0
+    start_host = start.cpu()
+    for name, accumulate, n_store in (("add", True, 0), ("store", False, 0),
+                                      ("split", True, half)):
         table.copy_(start)
-        hostmem.scatter_add_rows_pinned_cuda(table, rows, ids, accumulate)
+        hostmem.scatter_add_rows_pinned_cuda(table, rows, ids, accumulate, n_store)
         torch.cuda.synchronize()
         want = start_host.clone()
-        hostmem.scatter_add_rows_pinned_plain(want, rows, ids, accumulate)
-        exact[name] = torch.equal(table, want)
+        hostmem.scatter_add_rows_pinned_plain(want, rows, ids, accumulate, n_store)
+        exact[name] = torch.equal(table.view(torch.int32), want.view(torch.int32))
         err = max(err, (table[touched] - want[touched]).abs().max().item())
         del want
     del start_host
@@ -1968,6 +2051,8 @@ def scatter_kernel_check(torch, table, ids, reps=10):
                  reps=reps)
     store_ms = time_ms(torch, lambda: hostmem.scatter_add_rows_pinned_cuda(
         table, rows, ids, False), reps=reps)
+    split_ms = time_ms(torch, lambda: hostmem.scatter_add_rows_pinned_cuda(
+        table, rows, ids, True, half), reps=reps)
     plain_ms = wall_ms(torch, lambda: hostmem.scatter_add_rows_pinned_plain(table, rows, ids),
                        reps=3)
     # the host path's own context: its comm stream and download slots
@@ -1990,12 +2075,18 @@ def scatter_kernel_check(torch, table, ids, reps=10):
     row_bytes = n * ROW_BYTES
     t_bus = row_bytes / PEAK_PCIE_H2D * 1e3
     t_hbm = (n * ids.element_size() + row_bytes) / PEAK_BYTES * 1e3
+    bound = max(t_bus, t_hbm)
     return {
         "rows": n, "table_rows": table.shape[0], "row_bytes": row_bytes,
         "max_abs_err": err, "exact": exact, "ms": ms, "store_ms": store_ms,
+        # the first half stored into zero slots, the rest added
+        "split_half_ms": split_ms,
+        **pinned_grid_report(torch, hostmem.SCATTER_BLOCKS, n, ms, bound),
+        "store_share_of_bound": bound / store_ms,
+        "beside": pinned_beside(torch, table, ids, ("scatter_add", "scatter_store"), rows),
         "plain_ms": plain_ms, "host_path_ms": host_ms,
         "d2h_copy_ms": copy_ms, "d2h_bytes_per_s": table.numel() * 4 / (copy_ms * 1e-3),
-        "bound_ms": max(t_bus, t_hbm), "bound_by": "bytes",
+        "bound_ms": bound, "bound_by": "bytes",
         "bound_rates": {"bus": "PCIe Gen5 x16, 64e9 B/s each way (NVIDIA data sheet)",
                         "hbm": "3.35e12 B/s"},
         "bound_parts_ms": {"bus": t_bus, "hbm": t_hbm},
@@ -3314,8 +3405,13 @@ def bigcity_run(torch, city):
         "pinned_ab": {"equal": ab["equal"], "runs": {k: {
             "batch_s": r["batch_s"], "trailing_s": r["trailing_s"],
             "h2d_bytes": r["h2d_bytes"], "d2h_bytes": r["d2h_bytes"],
+            "scatter_rows": r["scatter_rows"], "stored_rows": r["stored_rows"],
             "launches": r["launches"], "spans_ms": {
-                s: r["spans_ms"].get(s) for s in CLM_SPANS}} for k, r in ab["runs"].items()}},
+                s: r["spans_ms"].get(s) for s in CLM_SPANS}} for k, r in ab["runs"].items()},
+            # the rows the card's scatter wrote that were first departures
+            # of the batch, stored into zero slots without a read
+            "first_departure_share": ab["runs"]["pinned"]["stored_rows"]
+            / max(1, ab["runs"]["pinned"]["scatter_rows"])},
         "launches": {"make": make["gt_launches"], "clm": clm["launches"],
                      "no_offload": no["launches"]},
         "kernels": kernels,
@@ -3359,6 +3455,10 @@ def bigcity_run(torch, city):
     check(all(pl.get(name, 0) > 0 for name in (*KERNELS, GATHER, SCATTER))
           and not hl.get(GATHER, 0) and not hl.get(SCATTER, 0),
           f"bigcity: --pinned_host batch launches {pl}, host path's {hl}")
+    pr = ab["runs"]["pinned"]
+    check(0 < pr["stored_rows"] <= pr["scatter_rows"] and not ab["runs"]["host"]["stored_rows"],
+          f"bigcity: the --pinned_host batch's scatter stored {pr['stored_rows']} of "
+          f"{pr['scatter_rows']} rows")
     return result
 
 

@@ -51,8 +51,18 @@ itself, both ways, through the pinned buffers' mapped addresses:
   waits for the scatter's event, then submits the finish set's host Adam.
   The rows of a launch are unique, and a row a finish set hands to the host
   Adam is written by no later launch of the batch.
-`h2d_bytes` counts the rows the gather reads as an upload's, and the rows
-the scatter reads back for its add as well; `d2h_bytes` the rows it writes.
+- a row's first departure in a batch goes to a zero slot: the host Adam
+  zeroes every row it consumes, and every row a batch sees is in one finish
+  set. So each launch's rows are ordered [first departures | repeats] on
+  the host (a (C,) bool of the rows that left, `_stores_first`; a flush's
+  order goes up as a permutation), and the kernel stores the first ones
+  without reading their slots (`n_store`). Only a row that leaves, comes
+  back and leaves again is read back and added to. This holds while
+  `ClmContext.grad_zero` does: a batch under --stop_update_param leaves its
+  gradients in the buffer, and clears it.
+`h2d_bytes` counts the rows the gather reads as an upload's, the rows the
+scatter reads back for its add, and a flush's permutation; `d2h_bytes` the
+rows it writes.
 
 Copies run on a comm stream created with --comm_stream_priority. The
 compute stream waits for each upload through an event, the comm stream for
@@ -178,6 +188,16 @@ class ClmContext:
     d2h_bytes: int = 0
     # --pinned_host: the card gathers the SH rows out of sh_host itself
     card_gather: bool = False
+    # every row of sh_grad_host is zero between batches (new buffers; the
+    # host Adam zeroes the rows it consumes): cleared by a batch under
+    # --stop_update_param. Under card_gather the card's scatter then stores
+    # each row's first departure of a batch; `departed` marks those rows
+    # (C,) on the host, and the meter counts the rows the scatter wrote and
+    # of them those it stored without a read (sums over batches)
+    grad_zero: bool = True
+    departed: Optional[torch.Tensor] = None
+    scatter_rows: int = 0
+    stored_rows: int = 0
     # the mesh whose gauss shard the buffers hold (`shard_context`), or None
     mesh: Optional[M.Mesh] = None
     # finish sets' gradient rows summed over the data group: staging, and
@@ -294,6 +314,7 @@ def unshard_context(ctx: ClmContext, timers=None) -> M.Mesh:
     for k in ("exp_avg", "exp_avg_sq"):
         setattr(ctx.adam, k, _whole_rows(ctx, getattr(ctx.adam, k)))
     ctx.sh_grad_host = host_zeros(ctx.sh_host.shape[0], SH_COLS, ctx.device)
+    ctx.grad_zero = True
     ctx.host_gather_bytes += 3 * _nbytes(ctx.sh_host)
     ctx.mesh = None
     tm.stop("clm.host_gather")
@@ -427,18 +448,19 @@ def _download(ctx: ClmContext, rows: torch.Tensor):
     return host, landed
 
 
-def _scatter(ctx: ClmContext, rows: torch.Tensor, ids_dev: torch.Tensor):
+def _scatter(ctx: ClmContext, rows: torch.Tensor, ids_dev: torch.Tensor, n_store: int = 0):
     """Under card_gather: the (n, 48) gradient `rows` added into sh_grad_host
-    at `ids_dev` (unique ids on the rows' device) by the card, on the comm
-    stream after the compute stream's work so far; returns (None, the event
-    the host waits on before it reads the rows, or None on the CPU, where
-    the add is done on return)."""
+    at `ids_dev` (unique ids on the rows' device) by the card, the first
+    `n_store` into zero slots, on the comm stream after the compute
+    stream's work so far; returns (None, the event the host waits on before
+    it reads the rows, or None on the CPU, where the add is done on
+    return)."""
     if ctx.comm is None:
-        hostmem.scatter_add_rows_pinned(ctx.sh_grad_host, rows, ids_dev)
+        hostmem.scatter_add_rows_pinned(ctx.sh_grad_host, rows, ids_dev, n_store=n_store)
         return None, None
     ctx.comm.wait_stream(torch.cuda.current_stream(ctx.device))
     with torch.cuda.stream(ctx.comm):
-        hostmem.scatter_add_rows_pinned(ctx.sh_grad_host, rows, ids_dev)
+        hostmem.scatter_add_rows_pinned(ctx.sh_grad_host, rows, ids_dev, n_store=n_store)
         landed = torch.cuda.Event()
         landed.record(ctx.comm)
     rows.record_stream(ctx.comm)
@@ -478,14 +500,49 @@ def _advance_rows(shc, grad_buf, h_dev, maps, n_next: int):
     return shc_next, grad_next, grad_buf[maps[2 * n_next:]]
 
 
-def _advance(ctx: ClmContext, shc, grad_buf, prev_ids, next_ids, prev_dev=None):
+def _stores_first(departed, ids, pos):
+    """`pos` (int32 positions into the host ids `ids` of rows that leave)
+    ordered [the rows' first departures of the batch | repeats], and the
+    rows marked in `departed`. Returns (pos, the number of first
+    departures)."""
+    rows = ids[pos.long()].long()
+    first = ~departed[rows]
+    departed[rows] = True
+    n_store = int(first.sum())
+    if 0 < n_store < len(pos):
+        pos = torch.cat([pos[first], pos[~first]])
+    return pos, n_store
+
+
+def _departed(ctx: ClmContext, stop_update: bool):
+    """The cleared (C,) bool `_stores_first` marks, when this batch's
+    first departures may be stored: under card_gather, with every gradient
+    row zero at its start (`grad_zero`) and updates on (the host Adam then
+    zeroes each row after its finish set). Else None: every row is added."""
+    if not (ctx.card_gather and ctx.grad_zero) or stop_update:
+        return None
+    C = ctx.sh_grad_host.shape[0]
+    if ctx.departed is None or ctx.departed.shape[0] != C:
+        ctx.departed = torch.zeros(C, dtype=torch.bool)
+    else:
+        ctx.departed.zero_()
+    return ctx.departed
+
+
+def _advance(ctx: ClmContext, shc, grad_buf, prev_ids, next_ids, prev_dev=None,
+             departed=None):
     """Advance the working set from the camera with `prev_ids` to the one
     with `next_ids` (host ids). Returns (next SH rows, their carried
     gradients, the gradient rows that leave, their ids: on the host, or
     under card_gather on the card, `prev_dev` (prev_ids there) at the
-    leaving positions of the uploaded maps). Under card_gather the arriving
-    rows' ids go up after the maps and the card gathers the rows by them."""
+    leaving positions of the uploaded maps, and the number of leading
+    leaving rows to store: with `departed` (`_departed`), the leaving rows
+    go [first departures | repeats]). Under card_gather the arriving rows'
+    ids go up after the maps and the card gathers the rows by them."""
     parts, h_ids = _transition(prev_ids, next_ids)
+    n_store = 0
+    if departed is not None:
+        parts[2], n_store = _stores_first(departed, prev_ids, parts[2])
     n_next, gp = len(next_ids), parts[2]
     if ctx.card_gather:
         parts.append(h_ids)
@@ -501,8 +558,29 @@ def _advance(ctx: ClmContext, shc, grad_buf, prev_ids, next_ids, prev_dev=None):
     maps_dev = maps_dev[:g_end].long()
     shc_next, grad_next, g_out = _advance_rows(shc, grad_buf, h_dev, maps_dev, n_next)
     if ctx.card_gather:
-        return shc_next, grad_next, g_out, prev_dev[maps_dev[2 * n_next:]]
-    return shc_next, grad_next, g_out, prev_ids[gp.long()]
+        return shc_next, grad_next, g_out, prev_dev[maps_dev[2 * n_next:]], n_store
+    return shc_next, grad_next, g_out, prev_ids[gp.long()], n_store
+
+
+def _flush(ctx: ClmContext, grad_buf, ids_dev, ids_host, departed=None):
+    """The whole working set leaves (the last camera, or every camera
+    without retention): (its gradient rows, their ids: on the host, or
+    under card_gather on the card, and the number of leading rows to
+    store). With `departed` the rows go [first departures | repeats], by a
+    permutation that goes up when both kinds are there."""
+    if not ctx.card_gather:
+        return grad_buf, ids_host, 0
+    if departed is None:
+        return grad_buf, ids_dev, 0
+    n = len(ids_host)
+    perm, n_store = _stores_first(departed, ids_host, torch.arange(n, dtype=torch.int32))
+    if not 0 < n_store < n:
+        return grad_buf, ids_dev, n_store
+    host = ctx.up_idx.take(n).view(-1)
+    host.copy_(perm)
+    perm_dev = _upload(ctx, host, ctx.up_idx).long()
+    ctx.h2d_bytes += _nbytes(host)
+    return grad_buf[perm_dev], ids_dev[perm_dev], n_store
 
 
 def _timed_sparse_step(ctx: ClmContext, rows, grad_scale: float, step: int):
@@ -614,6 +692,7 @@ def train_one_batch(state, opt_state, ctx: ClmContext, cams, gt, sh_degree,
     grad_scale = 1.0 / bsz
     sparse_adam = cfg.aux.sparse_adam
     stop_update = cfg.debug.stop_update_param
+    departed = _departed(ctx, stop_update)
 
     # 4. the camera loop over this rank's chain. A camera's gradient
     # download is drained one camera later, once the next camera's work is
@@ -653,16 +732,19 @@ def train_one_batch(state, opt_state, ctx: ClmContext, cams, gt, sh_degree,
             rows = torch.cat([never, rows])
         if cfg.tpu.retention and pos + 1 < S:
             tm.start("clm.advance")
-            shc, grad_buf, g_out, g_ids = _advance(ctx, shc, grad_buf, ids_h,
-                                                   ids_host[int(mine[pos + 1])], F.ids[cam])
+            shc, grad_buf, g_out, g_ids, n_store = _advance(
+                ctx, shc, grad_buf, ids_h, ids_host[int(mine[pos + 1])], F.ids[cam],
+                departed)
             tm.stop("clm.advance")
         else:  # the last camera, or retention off: flush the whole set
-            g_out, g_ids = grad_buf, (F.ids[cam] if ctx.card_gather else ids_h)
+            g_out, g_ids, n_store = _flush(ctx, grad_buf, F.ids[cam], ids_h, departed)
             shc = grad_buf = None
         ctx.d2h_bytes += _nbytes(g_out)
-        if ctx.card_gather:  # the scatter reads each row back for its add
-            ctx.h2d_bytes += _nbytes(g_out)
-            new_pending = (*_scatter(ctx, g_out, g_ids), g_ids, rows, summed)
+        if ctx.card_gather:  # the scatter reads back each row it adds to
+            ctx.h2d_bytes += _nbytes(g_out[n_store:])
+            ctx.scatter_rows += len(g_out)
+            ctx.stored_rows += n_store
+            new_pending = (*_scatter(ctx, g_out, g_ids, n_store), g_ids, rows, summed)
         else:
             new_pending = (*_download(ctx, g_out), g_ids, rows, summed)
         if pending is not None:
@@ -691,6 +773,8 @@ def train_one_batch(state, opt_state, ctx: ClmContext, cams, gt, sh_degree,
                      mask)
     state.xyz_grad_accum.add_(acc.accum)
     state.denom.add_(acc.denom)
+    if stop_update:  # no host Adam consumed this batch's gradient rows
+        ctx.grad_zero = False
 
     # the last download and the host Adam, after the card's work is done
     if ctx.device.type == "cuda":
@@ -814,6 +898,7 @@ def restore_extra(ctx: ClmContext, arrays: dict) -> ClmContext:
     ctx.sh_host = (host_zeros(*sh.shape, ctx.device).copy_(sh) if ctx.device.type == "cuda"
                    else sh)
     ctx.sh_grad_host = host_zeros(sh.shape[0], SH_COLS, ctx.device)
+    ctx.grad_zero = True
     for k in ("exp_avg", "exp_avg_sq"):
         setattr(ctx.adam, k, torch.from_numpy(
             np.array(arrays[f"clm.{k}"], np.float32, order="C")))

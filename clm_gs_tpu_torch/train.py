@@ -404,6 +404,10 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
             logger.write(f"clm overlap: host work {work * 1e3:.1f} ms/batch, "
                          f"trailing {trail * 1e3:.1f} ms/batch, "
                          f"comm-hidden {hidden * 100:.0f}%\n")
+            stored = (f", scatter stored {strategy_ctx.stored_rows} of "
+                      f"{strategy_ctx.scatter_rows} rows" if strategy_ctx.scatter_rows else "")
+            logger.write(f"clm transfer: up {strategy_ctx.h2d_bytes / nb:.0f} B/batch, "
+                         f"down {strategy_ctx.d2h_bytes / nb:.0f} B/batch{stored}\n")
             if strategy_ctx.data_sum_bytes:
                 logger.write(
                     f"clm data sum: {strategy_ctx.data_sum_s / nb * 1e3:.1f} ms/batch, "

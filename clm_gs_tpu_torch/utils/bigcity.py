@@ -662,9 +662,13 @@ def _pinned_ab(state, opt, ctx, batch, sync) -> dict:
     """One batch on the host path (ctx.card_gather off: the host gather and
     upload, the download and host scatter) and one with --pinned_host's
     card-side gather and scatter, each from the same start: a clone of the
-    card state and moments, the host SH rows and both moments restored.
+    card state and moments, the host SH rows and both moments restored, the
+    gradient rows zero (`grad_zero`: the batch before consumed every row
+    that the frozen batches left, as it saw the same cameras; the pinned
+    run's scatter then stores each row's first departure).
     `batch(state, opt, ctx, timers)` runs one. Returns each run's seconds,
-    clm spans, bytes each way, trailing seconds and kernel launches, and
+    clm spans, bytes each way, trailing seconds, kernel launches and the
+    rows the card's scatter wrote and of them stored, and
     whether the pinned run equals the host run to the bit: losses, the card
     groups, both card moments and the statistics (torch.equal), and the
     host SH rows and both moments (`_digest`)."""
@@ -682,9 +686,12 @@ def _pinned_ab(state, opt, ctx, batch, sync) -> dict:
                     buf.copy_(t)
             ctx.adam.step_count = step0
             ctx.card_gather = card
+            ctx.sh_grad_host.zero_()
+            ctx.grad_zero = True
             s, o = _clone(state), _clone(opt)
             timers = Timer(enabled=True)
             h2d0, d2h0, trail0 = ctx.h2d_bytes, ctx.d2h_bytes, ctx.trailing_s
+            rows0, stored0 = ctx.scatter_rows, ctx.stored_rows
             sync()
             _build.reset_launches()
             t0 = time.perf_counter()
@@ -694,7 +701,9 @@ def _pinned_ab(state, opt, ctx, batch, sync) -> dict:
                 "batch_s": time.perf_counter() - t0,
                 "spans_ms": {k: v[0] for k, v in _timer_sums(timers).items()},
                 "h2d_bytes": ctx.h2d_bytes - h2d0, "d2h_bytes": ctx.d2h_bytes - d2h0,
-                "trailing_s": ctx.trailing_s - trail0, "launches": dict(_build.LAUNCHES)}
+                "trailing_s": ctx.trailing_s - trail0, "launches": dict(_build.LAUNCHES),
+                "scatter_rows": ctx.scatter_rows - rows0,
+                "stored_rows": ctx.stored_rows - stored0}
             outs[name] = (out.losses, s, o, [_digest(t) for t in host_bufs()])
     finally:
         ctx.card_gather = card0
@@ -729,6 +738,8 @@ def collect(run_dir) -> dict:
         log = f.read()
     overlap = re.findall(r"clm overlap: host work ([\d.]+) ms/batch, trailing ([\d.]+) "
                          r"ms/batch, comm-hidden (\d+)%", log)
+    transfer = re.findall(r"clm transfer: up (\d+) B/batch, down (\d+) B/batch"
+                          r"(?:, scatter stored (\d+) of (\d+) rows)?", log)
     evals = re.findall(r"\[ITER (\d+)\] Evaluating (test|train): L1 ([\d.e-]+) "
                        r"PSNR ([\d.e-]+)", log)
     e2e = re.findall(r"end2end total_time: ([\d.]+) s, iterations: (\d+), "
@@ -750,6 +761,12 @@ def collect(run_dir) -> dict:
         "overlap_last": ({"host_work_ms_per_batch": float(overlap[-1][0]),
                           "trailing_ms_per_batch": float(overlap[-1][1]),
                           "comm_hidden_pct": int(overlap[-1][2])} if overlap else None),
+        # the run's bytes each way a batch, and the rows the card's scatter
+        # wrote and stored (--pinned_host), over its batches so far
+        "transfer_last": ({"h2d_bytes_per_batch": int(transfer[-1][0]),
+                           "d2h_bytes_per_batch": int(transfer[-1][1]),
+                           "scatter_stored_rows": int(transfer[-1][2] or 0),
+                           "scatter_rows": int(transfer[-1][3] or 0)} if transfer else None),
         "host_peak_gb": float(rss[-1]) if rss else None,
         "setup_host_peak_gb": float(setup_rss[0]) if setup_rss else None,
         "device_peak_gb_max": max((float(x) for x in dev_peak), default=None),

@@ -26,6 +26,7 @@ raises, and nothing falls back to the host gather or the host scatter.
 from __future__ import annotations
 
 import ctypes
+import functools
 import weakref
 
 import numpy as np
@@ -35,13 +36,63 @@ from clm_gs_tpu_torch import _build
 
 COLS = 48  # the SH row width, the only one the kernel takes
 _PTR_ARGTYPES = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)]
+_GRID_ARGTYPES = [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+             ctypes.c_longlong, ctypes.c_void_p, *_GRID_ARGTYPES]
 _SCATTER_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-                     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                     *_GRID_ARGTYPES]
 # csrc/pinned_gather.cu's status codes besides cudaError values
 _NOT_PINNED_HOST = -1
 _NO_DEVICE_POINTER = -2
+
+# The kernels' geometry (csrc/pinned_rows.cuh): a warp moves ROW_GROUP rows
+# a group and each kernel's PINNED_DEPTH groups a step, every read of a step
+# issued before its first store; a block walks one contiguous range of rows.
+# The bus, not the SMs, bounds them, so the grid is small: at most
+# 1/SM_SHARE of the card's SMs, the rest left to the micro step beside them.
+ROW_GROUP = 8
+SM_SHARE = 8
+# Most blocks of each kernel, from utils/pinned_probe.py's sweep and its
+# matmuls beside each grid on H100 hosts (132 SMs; PERF.md §6). The gather
+# runs on the compute stream, in line with the micro step: the grid nearest
+# its best time on every host measured. The scatter runs beside the next
+# camera's micro step: the smallest grid that leaves the card's other work
+# near its time alone, at the cost of its own time (adding, above twice its
+# bound)
+GATHER_BLOCKS = 16
+SCATTER_BLOCKS = 4
+
+
+def launch_blocks(sms: int, most: int) -> int:
+    """The blocks a kernel of at most `most` blocks takes on a card of
+    `sms` SMs: no more than 1/SM_SHARE of them, and at least one."""
+    return max(1, min(most, sms // SM_SHARE))
+
+
+def pinned_grid(n: int, blocks: int) -> tuple:
+    """(blocks used, rows_per_block) of a launch over n rows in at most
+    `blocks` blocks: block b takes rows [b * rows_per_block, min(n, (b + 1)
+    * rows_per_block)), rows_per_block a multiple of ROW_GROUP, and no block
+    is empty; (0, 0) for no rows."""
+    if n < 0 or blocks < 1:
+        raise ValueError(f"pinned_grid({n}, {blocks}): n >= 0 rows and blocks >= 1")
+    if n == 0:
+        return 0, 0
+    rows_per_block = -(-n // blocks)
+    rows_per_block = -(-rows_per_block // ROW_GROUP) * ROW_GROUP
+    return -(-n // rows_per_block), rows_per_block
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _grid(n: int, device, most: int) -> tuple:
+    """`pinned_grid` of a launch over n rows on `device`."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return pinned_grid(n, launch_blocks(_sms(index), most))
 
 
 # cudaHostRegister's flags: portable (every context) and mapped (the card
@@ -59,19 +110,53 @@ def pinned_zeros(shape, dtype=torch.float32) -> torch.Tensor:
     `pin_memory=True` rounds each block up to a power of two, all of it
     page-locked and resident: 1.79x the bytes of BigCity-25M's (25,034,752,
     48) SH rows, and for the 102M scene's two (C, 48) buffers more than its
-    host holds. So a buffer of EXACT_PIN_BYTES or more is a numpy allocation
-    registered with the CUDA runtime (cudaHostRegister) at its exact size,
-    and unregistered when the array, which every view of the tensor keeps
-    alive, goes."""
-    arr = np.zeros(0, dtype=torch.empty(0, dtype=dtype).numpy().dtype)
-    if int(np.prod(shape)) * arr.itemsize < EXACT_PIN_BYTES:
+    host holds. So a buffer of EXACT_PIN_BYTES or more is registered with
+    the CUDA runtime at its exact size (`register`). It starts on a 2 MiB
+    boundary and is advised to the kernel as transparent huge pages before
+    its first touch (`_huge_zeros`): the card's kernels read rows spread over
+    the whole table (csrc/pinned_gather.cu, pinned_scatter.cu), and with 2
+    MiB pages their address translation no longer bounds them
+    (utils/pinned_probe.py on an H100, 800,000 ids spread over 25M rows: the
+    gather 13.0 -> 9.1 ms, the adding scatter 18.3 -> 10.1, storing 8.3 ->
+    3.6, near consecutive rows' 8.8, 10.6, 4.6; PERF.md §6)."""
+    itemsize = torch.empty(0, dtype=dtype).element_size()
+    nbytes = int(np.prod(shape)) * itemsize
+    if nbytes < EXACT_PIN_BYTES:
         return torch.zeros(shape, dtype=dtype, pin_memory=True)
-    arr = np.zeros(shape, dtype=arr.dtype)
+    np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+    return register(_huge_zeros(nbytes).view(np_dtype).reshape(shape))
+
+
+def register(arr: np.ndarray) -> torch.Tensor:
+    """A tensor over `arr`, page-locked and mapped for every card
+    (cudaHostRegister) until the array, which every view of the tensor keeps
+    alive, goes."""
     cudart = torch.cuda.cudart()
     torch.cuda.check_error(cudart.cudaHostRegister(arr.ctypes.data, arr.nbytes,
                                                    _REGISTER_FLAGS))
     weakref.finalize(arr, _unregister, arr.ctypes.data)
     return torch.from_numpy(arr)
+
+
+HUGE_PAGE = 2 << 20
+_MADV_HUGEPAGE = 14  # <sys/mman.h>
+
+
+def _huge_zeros(nbytes: int) -> np.ndarray:
+    """`nbytes` zero bytes starting on a HUGE_PAGE boundary, madvise'd
+    MADV_HUGEPAGE before anything touches them (numpy's large allocations
+    are untouched anonymous mappings), then zeroed, which faults them in.
+    The advice is a hint: where the host kernel refuses it, the memory is
+    the same zeros in whatever pages it gives."""
+    span = -(-max(nbytes, 1) // HUGE_PAGE) * HUGE_PAGE
+    raw = np.empty(span + HUGE_PAGE, np.uint8)
+    off = -raw.ctypes.data % HUGE_PAGE
+    libc = ctypes.CDLL(None)
+    libc.madvise.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int]
+    libc.madvise(ctypes.c_void_p(raw.ctypes.data + off), span, _MADV_HUGEPAGE)
+    arr = raw[off:off + nbytes]
+    arr.fill(0)
+    return arr
 
 
 def _unregister(ptr: int):
@@ -120,10 +205,12 @@ def gather_rows_pinned_cuda(sh_host: torch.Tensor, ids: torch.Tensor) -> torch.T
     a new (n, 48) tensor on the ids' device, on its current stream.
 
     Replaces hostmem.py:117 PinnedShTable.fetch of the reference. Bound by
-    the bytes that cross the bus: twelve lanes carry a row as twelve 16-byte
-    loads in a grid-stride loop. The address is looked up on every call, as
-    the caller's table is replaced when it grows. An id outside [0, C) makes
-    the kernel trap, and the next synchronisation raises."""
+    the bytes that cross the bus: a grid of at most GATHER_BLOCKS blocks
+    (`pinned_grid`), each a contiguous range of rows, every lane issuing
+    3 x 8 16-byte loads before it stores any. The address is
+    looked up on every call, as the caller's table is replaced when it
+    grows. An id outside [0, C) makes the kernel trap, and the next
+    synchronisation raises."""
     dev = ids.device
     if dev.type != "cuda":
         raise ValueError("gather_rows_pinned_cuda takes ids on the card")
@@ -138,7 +225,8 @@ def gather_rows_pinned_cuda(sh_host: torch.Tensor, ids: torch.Tensor) -> torch.T
     table = _device_address(sh_host, dev)
     _build.launch("pinned_gather", "clmgs_pinned_gather", _ARGTYPES, dev,
                   ctypes.c_void_p(table), sh_host.shape[0], _build.ptr(ids),
-                  int(ids.dtype == torch.int64), n, _build.ptr(out))
+                  int(ids.dtype == torch.int64), n, _build.ptr(out),
+                  *_grid(n, dev, GATHER_BLOCKS))
     return out
 
 
@@ -150,33 +238,49 @@ def gather_rows_pinned(sh_host: torch.Tensor, ids: torch.Tensor) -> torch.Tensor
     return gather_rows_pinned_plain(sh_host, ids)
 
 
+def _check_n_store(n_store: int, n: int):
+    if not 0 <= n_store <= n:
+        raise ValueError(f"n_store {n_store} outside [0, {n}]")
+
+
 def scatter_add_rows_pinned_plain(grad_host: torch.Tensor, rows: torch.Tensor,
-                                  ids: torch.Tensor, accumulate: bool = True):
+                                  ids: torch.Tensor, accumulate: bool = True,
+                                  n_store: int = 0):
     """(n, 48) `rows` added into rows `ids` of the (C, 48) host table (stored
     there when not `accumulate`), the plain version: the rows and ids
     brought to the host and `index_add_` (a duplicate id adds each of its
-    rows) or an assignment."""
+    rows) or an assignment. With `accumulate`, the first `n_store` rows go
+    to slots the caller knows to be zero: they are written as 0 + row, the
+    bits the add into +0.0 gives (-0.0 included), and not read."""
     _check_table(grad_host, "grad_host")
     ids = ids.cpu().long()
-    if accumulate:
-        grad_host.index_add_(0, ids, rows.cpu())
-    else:
-        grad_host[ids] = rows.cpu()
+    rows = rows.cpu()
+    if not accumulate:
+        grad_host[ids] = rows
+        return
+    _check_n_store(n_store, len(ids))
+    if n_store:
+        grad_host[ids[:n_store]] = rows[:n_store] + 0.0
+    grad_host.index_add_(0, ids[n_store:], rows[n_store:])
 
 
 def scatter_add_rows_pinned_cuda(grad_host: torch.Tensor, rows: torch.Tensor,
-                                 ids: torch.Tensor, accumulate: bool = True):
+                                 ids: torch.Tensor, accumulate: bool = True,
+                                 n_store: int = 0):
     """The same through csrc/pinned_scatter.cu: `grad_host` pinned, `rows`
     (n, 48) float32 and `ids` int32 or int64 on one card, the ids unique
     (the kernel has no atomics: a duplicate id leaves its row undefined).
-    The card reads each row of the table over the bus, adds, and writes it
-    back, on the rows' current stream; the host may read the rows once that
-    stream's work so far is done (an event recorded after the call).
+    The card reads each added row of the table over the bus (not the first
+    `n_store`), adds, and writes it back, on the rows' current stream; the
+    host may read the rows once that stream's work so far is done (an event
+    recorded after the call).
 
-    Replaces hostmem.py:135 PinnedGradBuffer.offload of the reference. The
-    address is looked up on every call, as the caller's table is replaced
-    when it grows. An id outside [0, C) makes the kernel trap, and the next
-    synchronisation raises."""
+    Replaces hostmem.py:135 PinnedGradBuffer.offload of the reference. A grid
+    of at most SCATTER_BLOCKS blocks (`pinned_grid`), every read of a warp's
+    step issued before its writes. The address is looked up
+    on every call, as the caller's table is replaced when it grows. An id
+    outside [0, C) makes the kernel trap, and the next synchronisation
+    raises."""
     dev = rows.device
     if dev.type != "cuda":
         raise ValueError("scatter_add_rows_pinned_cuda takes rows on the card")
@@ -186,21 +290,24 @@ def scatter_add_rows_pinned_cuda(grad_host: torch.Tensor, rows: torch.Tensor,
     n = ids.shape[0]
     _build.require(ids, "ids", ids.dtype, (n,), dev)
     _build.require(rows, "rows", torch.float32, (n, COLS), dev)
+    _check_n_store(n_store, n)
     if n == 0:
         return
     table = _device_address(grad_host, dev, "grad_host")
     _build.launch("pinned_scatter", "clmgs_pinned_scatter", _SCATTER_ARGTYPES, dev,
                   ctypes.c_void_p(table), grad_host.shape[0], _build.ptr(ids),
-                  int(ids.dtype == torch.int64), n, _build.ptr(rows), int(accumulate))
+                  int(ids.dtype == torch.int64), n, _build.ptr(rows), int(accumulate),
+                  n_store, *_grid(n, dev, SCATTER_BLOCKS))
 
 
 def scatter_add_rows_pinned(grad_host: torch.Tensor, rows: torch.Tensor, ids: torch.Tensor,
-                            accumulate: bool = True):
-    """`rows` added into rows `ids` of the host table: rows on the card
-    launch the kernel, rows on the CPU take the plain version."""
+                            accumulate: bool = True, n_store: int = 0):
+    """`rows` added into rows `ids` of the host table (the first `n_store`
+    into slots known to be zero): rows on the card launch the kernel, rows
+    on the CPU take the plain version."""
     if rows.device.type == "cuda":
-        return scatter_add_rows_pinned_cuda(grad_host, rows, ids, accumulate)
-    return scatter_add_rows_pinned_plain(grad_host, rows, ids, accumulate)
+        return scatter_add_rows_pinned_cuda(grad_host, rows, ids, accumulate, n_store)
+    return scatter_add_rows_pinned_plain(grad_host, rows, ids, accumulate, n_store)
 
 
 class PinnedGradBuffer:

@@ -300,3 +300,25 @@ def test_run_splits_a_batch_and_samples_rss(tiny_scene, tmp_path):
     assert {"clm.filters", "clm.micro", "clm.advance"} <= set(loop["batch_spans_ms"])
     assert 0 < res["rss_before_bytes"] <= res["setup_rss_bytes"] <= res["sampled_peak_rss_bytes"]
     assert res["setup_s"] is not None and res["clm_host_state_bytes"] == 768 * 4096
+
+
+def test_pinned_ab_stores_first_departures(tiny_scene, tmp_path):
+    """`bigcity.run --device_loop --pinned_ab` on the CPU: the batch on the
+    host path and with --pinned_host from one start, equal to the bit; the
+    pinned run's scatter stores its rows' first departures into zero slots
+    (more rows stored than added) and the host run's stores none."""
+    root, _ = tiny_scene
+    res = B.run(root, str(tmp_path / "run"), 12, device_loop=True, pinned_ab=True,
+                device="cpu", extra=["--bsz", "12", "--do_not_save", "--quiet",
+                                     "--prealloc_capacity", "4096"])
+    ab = res["device_loop"]["pinned_ab"]
+    assert all(ab["equal"].values()), ab["equal"]
+    host, pinned = ab["runs"]["host"], ab["runs"]["pinned"]
+    assert host["scatter_rows"] == host["stored_rows"] == 0
+    assert pinned["scatter_rows"] > 0
+    assert pinned["scatter_rows"] - pinned["stored_rows"] < pinned["stored_rows"]
+    assert pinned["d2h_bytes"] == host["d2h_bytes"]
+    # the run's log line of bytes each way (host path: nothing stored)
+    assert res["transfer_last"]["h2d_bytes_per_batch"] > 0
+    assert res["transfer_last"]["d2h_bytes_per_batch"] > 0
+    assert res["transfer_last"]["scatter_rows"] == 0

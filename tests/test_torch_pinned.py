@@ -24,7 +24,7 @@ import torch
 from clm_gs_tpu_torch import _build, config as tconfig
 from clm_gs_tpu_torch.optim import AdamConfig
 from clm_gs_tpu_torch.strategies import clm_offload as t_clm
-from clm_gs_tpu_torch.utils import hostmem, native
+from clm_gs_tpu_torch.utils import hostmem, native, pinned_probe
 
 torch.set_num_threads(1)
 
@@ -103,7 +103,9 @@ def _no_host_scatter(*args, **kwargs):
 def _port_batch(pinned, retention):
     """One batch from seeded moments on the CPU; the arriving rows of each
     transition are counted, and the gradient rows that go down (downloaded,
-    or under --pinned_host scatter-added by the card)."""
+    or under --pinned_host scatter-added by the card), of them those the
+    card's scatter stores into zero slots, and the rows of each flush whose
+    permutation went up."""
     from tests.test_torch_clm import _result
     from tests.test_torch_naive import T_BG, T_LRS, _cams
     from tests.test_torch_train_step import _inputs
@@ -111,8 +113,8 @@ def _port_batch(pinned, retention):
 
     state_np, opt_np, gts = _inputs()
     cfg, state, opt, ctx = _start(state_np, opt_np, pinned, retention)
-    arriving, down = [], []
-    real = t_clm._classify_transition
+    arriving, down, stored, permuted = [], [], [], []
+    real, real_scatter, real_flush = t_clm._classify_transition, t_clm._scatter, t_clm._flush
 
     def count(prev_ids, next_ids):
         out = real(prev_ids, next_ids)
@@ -125,9 +127,20 @@ def _port_batch(pinned, retention):
             return fn(ctx, rows, *args)
         return wrapper
 
+    def scatter(ctx, rows, ids_dev, n_store=0):
+        stored.append(n_store)
+        return real_scatter(ctx, rows, ids_dev, n_store)
+
+    def flush(ctx, grad_buf, ids_dev, ids_host, departed=None):
+        out = real_flush(ctx, grad_buf, ids_dev, ids_host, departed)
+        if 0 < out[2] < len(ids_host):
+            permuted.append(len(ids_host))
+        return out
+
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(t_clm, "_classify_transition", count)
-        mp.setattr(t_clm, "_scatter", counted(t_clm._scatter))
+        mp.setattr(t_clm, "_scatter", counted(scatter))
+        mp.setattr(t_clm, "_flush", flush)
         mp.setattr(t_clm, "_download", counted(t_clm._download))
         if pinned:  # the card path never gathers or scatters on the host
             mp.setattr(native, "gather_rows", _no_host_gather)
@@ -140,6 +153,7 @@ def _port_batch(pinned, retention):
             ctx.close()
     res = _result(state, opt, ctx, [out.losses.numpy()], out, lambda t: t.numpy().copy())
     res.update(h2d=ctx.h2d_bytes, d2h=ctx.d2h_bytes, arriving=arriving, down=down,
+               stored=stored, permuted=permuted, stored_rows=ctx.stored_rows,
                state_np=state_np, opt_np=opt_np)
     return res
 
@@ -155,12 +169,16 @@ def test_pinned_batch_equals_host_gather_batch(retention):
     for key in ("xyz_grad_accum", "denom", "visible_any"):
         np.testing.assert_array_equal(card[key], host[key])
     # the same bytes each way, apart from the arriving rows' int32 ids,
-    # which go up with the advance's maps, and the gradient rows the card's
-    # scatter reads back for its add: as many as go down
+    # which go up with the advance's maps, the gradient rows the card's
+    # scatter reads back for its add: those that go down less the first
+    # departures it stores, and a flush's int32 permutation
     assert card["arriving"] == host["arriving"]
     assert card["down"] == host["down"] and len(card["down"]) == 4
     assert (len(card["arriving"]) == 3) is retention
-    assert card["h2d"] - host["h2d"] == 4 * sum(card["arriving"]) + 192 * sum(card["down"])
+    assert 0 < sum(card["stored"]) == card["stored_rows"] <= sum(card["down"])
+    assert not any(host["stored"]) and not host["permuted"] and not host["stored_rows"]
+    assert card["h2d"] - host["h2d"] == (4 * sum(card["arriving"]) + 4 * sum(card["permuted"])
+                                         + 192 * (sum(card["down"]) - sum(card["stored"])))
     assert card["d2h"] == host["d2h"]
 
 
@@ -302,6 +320,37 @@ def test_cli_pinned_host(tmp_path, strategy):
     assert any("Evaluating test" in ln for ln in numbers(runs[True][0]))
 
 
+@pytest.mark.parametrize("n", [0, 1, 13, 8 * 16 * 3 + 5, 663_139])
+@pytest.mark.parametrize("sms,most", [(132, hostmem.GATHER_BLOCKS),
+                                      (132, hostmem.SCATTER_BLOCKS), (132, 1056),
+                                      (8, hostmem.GATHER_BLOCKS), (1, hostmem.GATHER_BLOCKS)])
+def test_pinned_grid_covers_every_row_once(n, sms, most):
+    """hostmem.pinned_grid in launch_blocks(sms, most) blocks: ranges of
+    rows_per_block rows (a multiple of ROW_GROUP) that cover [0, n) once,
+    never more blocks than the cap (1/SM_SHARE of the SMs and `most`, at
+    least one), and none without a row."""
+    cap = hostmem.launch_blocks(sms, most)
+    assert cap == max(1, min(most, sms // hostmem.SM_SHARE))
+    b, rpb = hostmem.pinned_grid(n, cap)
+    if n == 0:
+        assert (b, rpb) == (0, 0)
+        return
+    assert 1 <= b <= cap <= max(1, sms // hostmem.SM_SHARE) and rpb % hostmem.ROW_GROUP == 0
+    covered = np.zeros(n, np.int64)
+    for k in range(b):
+        lo, hi = k * rpb, min(n, (k + 1) * rpb)
+        assert lo < hi
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    # clm's grids on a 132-SM card, the most of them 1/8 of its SMs
+    assert hostmem.launch_blocks(132, hostmem.GATHER_BLOCKS) == 16
+    assert hostmem.launch_blocks(132, hostmem.SCATTER_BLOCKS) == 4
+    with pytest.raises(ValueError):
+        hostmem.pinned_grid(n, 0)
+    with pytest.raises(ValueError):
+        hostmem.pinned_grid(-1, cap)
+
+
 # ---- on the card ----
 
 @pytest.fixture
@@ -333,6 +382,45 @@ def test_kernel_matches_plain(dev, n, dtype):
     torch.testing.assert_close(got.cpu(), hostmem.gather_rows_pinned_plain(table, ids),
                                rtol=0, atol=0)
     assert _build.LAUNCHES["pinned_gather"] - before == (n > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [1, 3, 16, 1056])
+@pytest.mark.parametrize("depth", pinned_probe.DEPTHS)
+def test_kernel_geometry_matches_plain(dev, blocks, depth):
+    """Every grid and depth of the probe's sweep (the source built at each
+    PINNED_DEPTH) on a ragged 100,003 ids, int32 and int64."""
+    table = torch.from_numpy(_table(5000, seed=depth)).pin_memory()
+    for dtype in (torch.int32, torch.int64):
+        ids = _ids(100_003, 5000, dtype, blocks)
+        got = pinned_probe.variant_kernels(table, None, ids.to(dev), blocks, depth)["gather"]()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.cpu(), hostmem.gather_rows_pinned_plain(table, ids),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_pinned_zeros_huge_pages(dev, monkeypatch):
+    """pinned_zeros from EXACT_PIN_BYTES up (here 5,000 rows): zeros on a 2
+    MiB boundary, registered, read by the kernel, and unregistered when its
+    last view goes."""
+    import gc
+
+    unregistered = []
+    real = hostmem._unregister
+    monkeypatch.setattr(hostmem, "_unregister",
+                        lambda ptr: (unregistered.append(ptr), real(ptr)))
+    monkeypatch.setattr(hostmem, "EXACT_PIN_BYTES", 5000 * 48 * 4)
+    t = hostmem.pinned_zeros((5000, 48))
+    assert t.is_pinned() and not t.any() and t.data_ptr() % hostmem.HUGE_PAGE == 0
+    t.copy_(torch.from_numpy(_table(5000, seed=9)))
+    ids = _ids(3000, 5000, torch.int32, 9)
+    got = hostmem.gather_rows_pinned(t, ids.to(dev))
+    torch.testing.assert_close(got.cpu(), t[ids.long()], rtol=0, atol=0)
+    ptr = t.data_ptr()
+    del t
+    gc.collect()
+    assert unregistered == [ptr]
 
 
 @pytest.mark.cuda

@@ -25,7 +25,7 @@ import torch
 from clm_gs_tpu_torch import _build
 from clm_gs_tpu_torch.optim import AdamConfig
 from clm_gs_tpu_torch.strategies import clm_offload as t_clm
-from clm_gs_tpu_torch.utils import hostmem, native
+from clm_gs_tpu_torch.utils import hostmem, native, pinned_probe
 
 torch.set_num_threads(1)
 
@@ -176,6 +176,93 @@ def test_card_scatter_batch_equals_host_scatter_batch(retention, stop_update):
     assert bool(host["sh_grad_host"].any()) is stop_update
 
 
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n_store", [0, 1, 57, 120])
+def test_plain_store_split_equals_store_then_add(dtype, n_store):
+    """The plain scatter with n_store: the first n_store rows stored (into
+    zero slots), the rest added, in one call, equal to the bit to a store
+    call of the first rows and an adding call of the rest; a -0.0 stored
+    into a zero slot comes out as the add's +0.0."""
+    base = _rows(300, seed=4)
+    g = _rows(120, seed=5)
+    g[0, :3] = -0.0
+    idx = torch.from_numpy(_unique_ids(120, 300, seed=6)).to(dtype)
+    base[idx[:n_store].long().numpy()] = 0.0
+    got = torch.from_numpy(base.copy())
+    hostmem.scatter_add_rows_pinned(got, torch.from_numpy(g), idx, n_store=n_store)
+    want = torch.from_numpy(base.copy())
+    hostmem.scatter_add_rows_pinned_plain(want, torch.from_numpy(g[:n_store]), idx[:n_store],
+                                          accumulate=False)
+    hostmem.scatter_add_rows_pinned_plain(want, torch.from_numpy(g[n_store:]), idx[n_store:])
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    added = torch.from_numpy(base.copy())
+    hostmem.scatter_add_rows_pinned_plain(added, torch.from_numpy(g), idx)
+    assert got.numpy().tobytes() == added.numpy().tobytes()
+    assert not torch.signbit(got[idx[0].long(), :3]).any() or n_store == 0
+    with pytest.raises(ValueError, match="n_store"):
+        hostmem.scatter_add_rows_pinned_plain(got, torch.from_numpy(g), idx, n_store=121)
+
+
+def _batches(pinned, retention, stops):
+    """Batches in a row from seeded moments on the CPU, batch k under
+    --stop_update_param when stops[k]. Under --pinned_host the plain
+    scatter asserts that every slot it stores into is +0.0. Returns (the
+    last batch's `_batch` dict, the rows stored by each batch, the
+    context's grad_zero after each)."""
+    from tests.test_torch_naive import T_BG, T_LRS, _cams
+    from tests.test_torch_pinned import _start
+    from tests.test_torch_train_step import _inputs
+    from tests.test_train_synthetic import H, W
+
+    real = hostmem.scatter_add_rows_pinned_plain
+
+    def plain(grad_host, rows, ids, accumulate=True, n_store=0):
+        slots = grad_host[ids[:n_store].cpu().long()]
+        assert not slots.any() and not torch.signbit(slots).any(), "a stored slot is not zero"
+        return real(grad_host, rows, ids, accumulate, n_store)
+
+    state_np, opt_np, gts = _inputs()
+    cfg, state, opt, ctx = _start(state_np, opt_np, pinned, retention)
+    stored, clean = [], []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(hostmem, "scatter_add_rows_pinned_plain", plain)
+        try:
+            for stop in stops:
+                cfg.debug.stop_update_param = stop
+                before = ctx.stored_rows
+                state, opt, ctx, out = t_clm.train_one_batch(
+                    state, opt, ctx, _cams(), torch.from_numpy(gts), 3, T_LRS, AdamConfig(),
+                    T_BG, W, H, cfg)
+                stored.append(ctx.stored_rows - before)
+                clean.append(ctx.grad_zero)
+        finally:
+            ctx.close()
+    last = {"losses": out.losses.numpy(), "sh_host": ctx.sh_host.numpy(),
+            "exp_avg": ctx.adam.exp_avg.numpy(), "exp_avg_sq": ctx.adam.exp_avg_sq.numpy(),
+            "sh_grad_host": ctx.sh_grad_host.numpy(), "xyz": state.params.xyz.numpy()}
+    return last, stored, clean
+
+
+@pytest.mark.parametrize("retention", [True, False])
+@pytest.mark.parametrize("stops", [(False, False, False), (True, False, False)])
+def test_split_stores_only_into_zero_slots(retention, stops):
+    """Three clm batches in a row with --pinned_host: each stores its rows'
+    first departures into zero slots (the plain scatter checks every one)
+    and the batches equal the host path's to the bit. A batch under
+    --stop_update_param leaves its gradients in the buffer: it stores
+    nothing, and neither do the batches after it, which add every row."""
+    host, host_stored, _ = _batches(False, retention, stops)
+    card, card_stored, clean = _batches(True, retention, stops)
+    for k in host:
+        np.testing.assert_array_equal(card[k], host[k], err_msg=k)
+    assert not any(host_stored)
+    assert not card["sh_grad_host"].any()  # the last batch consumed every row
+    if stops[0]:  # the first batch's gradients were added to, not overwritten
+        assert card_stored == [0, 0, 0] and clean == [False] * 3
+    else:
+        assert all(n > 0 for n in card_stored) and clean == [True] * 3
+
+
 # ---- on the card ----
 
 @pytest.fixture
@@ -200,6 +287,38 @@ def test_kernel_matches_plain(dev, n, dtype, accumulate):
     torch.cuda.synchronize()
     torch.testing.assert_close(table, want, rtol=0, atol=0)
     assert _build.LAUNCHES["pinned_scatter"] - before == (n > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [1, 3, 16, 1056])
+@pytest.mark.parametrize("depth", pinned_probe.DEPTHS)
+@pytest.mark.parametrize("n_store", [0, 1, 2345, 4001])
+def test_kernel_geometry_and_split_match_plain(dev, blocks, depth, n_store):
+    """Every grid and depth of the probe's sweep (the source built at each
+    PINNED_DEPTH), adding with the first n_store rows stored into zero
+    slots and storing, against the plain version to the bit (the ragged
+    4,001 rows over `blocks` ranges); clm's own launch too."""
+    n = 4001
+    table = torch.from_numpy(_rows(9000, seed=blocks + depth)).pin_memory()
+    g = torch.from_numpy(_rows(n, seed=depth))
+    g[0, :4] = -0.0
+    ids = torch.from_numpy(_unique_ids(n, 9000, seed=n_store))
+    table[ids[:n_store].long()] = 0.0
+    start = table.clone()
+    for accumulate in (True, False):
+        table.copy_(start)
+        want = start.clone()
+        hostmem.scatter_add_rows_pinned_plain(want, g, ids, accumulate, n_store)
+        kernels = pinned_probe.variant_kernels(table, g.to(dev), ids.to(dev), blocks, depth,
+                                               n_store)
+        kernels["scatter_add" if accumulate else "scatter_store"]()
+        torch.cuda.synchronize()
+        assert table.numpy().tobytes() == want.numpy().tobytes()
+        table.copy_(start)
+        hostmem.scatter_add_rows_pinned_cuda(table, g.to(dev), ids.to(dev), accumulate,
+                                             n_store)
+        torch.cuda.synchronize()
+        assert table.numpy().tobytes() == want.numpy().tobytes()
 
 
 @pytest.mark.cuda
