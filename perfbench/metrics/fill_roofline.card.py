@@ -1,0 +1,7 @@
+"""`fill_roofline` in the cells that keep every row on the card, where it moves
+`train_mpix_s.card`: the same reader (metrics/fill_roofline.py)."""
+
+from perfbench.harness import metric_module
+
+_base = metric_module("fill_roofline")
+UNIT, CAPTURES, read = _base.UNIT, _base.CAPTURES, _base.read
