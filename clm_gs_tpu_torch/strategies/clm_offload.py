@@ -125,7 +125,7 @@ from clm_gs_tpu_torch.strategies import offload_common as oc
 from clm_gs_tpu_torch.strategies.no_offload import StepOut
 from clm_gs_tpu_torch.utils import hostmem, native
 from clm_gs_tpu_torch.utils.general import STAGES
-from clm_gs_tpu_torch.utils.timer import Timer
+from clm_gs_tpu_torch.utils.timer import OFF, Timer
 
 SH_COLS = 48
 
@@ -186,6 +186,12 @@ class ClmContext:
     # every byte the batches copy between the host and the card
     h2d_bytes: int = 0
     d2h_bytes: int = 0
+    # rows, summed over each batch's cameras on this rank's chain: those
+    # each camera sees, and those brought to the card from the host (a
+    # chain's first fetch and each advance's arriving rows); retention kept
+    # the rest on the card: 1 - fetched_rows / needed_rows
+    needed_rows: int = 0
+    fetched_rows: int = 0
     # --pinned_host: the card gathers the SH rows out of sh_host itself
     card_gather: bool = False
     # every row of sh_grad_host is zero between batches (new buffers; the
@@ -530,7 +536,7 @@ def _departed(ctx: ClmContext, stop_update: bool):
 
 
 def _advance(ctx: ClmContext, shc, grad_buf, prev_ids, next_ids, prev_dev=None,
-             departed=None):
+             departed=None, tm=OFF):
     """Advance the working set from the camera with `prev_ids` to the one
     with `next_ids` (host ids). Returns (next SH rows, their carried
     gradients, the gradient rows that leave, their ids: on the host, or
@@ -538,25 +544,33 @@ def _advance(ctx: ClmContext, shc, grad_buf, prev_ids, next_ids, prev_dev=None,
     leaving positions of the uploaded maps, and the number of leading
     leaving rows to store: with `departed` (`_departed`), the leaving rows
     go [first departures | repeats]). Under card_gather the arriving rows'
-    ids go up after the maps and the card gathers the rows by them."""
-    parts, h_ids = _transition(prev_ids, next_ids)
-    n_store = 0
-    if departed is not None:
-        parts[2], n_store = _stores_first(departed, prev_ids, parts[2])
-    n_next, gp = len(next_ids), parts[2]
-    if ctx.card_gather:
-        parts.append(h_ids)
-    else:
-        h_dev = _fetch(ctx, None, h_ids)
-    maps = ctx.up_idx.take(sum(len(t) for t in parts)).view(-1)
-    torch.cat(parts, out=maps)
-    maps_dev = _upload(ctx, maps, ctx.up_idx)
-    g_end = 2 * n_next + len(gp)
-    if ctx.card_gather:
-        h_dev = _fetch(ctx, maps_dev[g_end:])  # the arriving ids
+    ids go up after the maps and the card gathers the rows by them. Spans:
+    the host's maps (`clm.advance.transition`), what goes up and the
+    arriving rows (`clm.advance.fetch`), the card's gathers
+    (`clm.advance.rows`)."""
+    with tm.span("clm.advance.transition"):
+        parts, h_ids = _transition(prev_ids, next_ids)
+        n_store = 0
+        if departed is not None:
+            parts[2], n_store = _stores_first(departed, prev_ids, parts[2])
+    with tm.span("clm.advance.fetch"):
+        n_next, gp = len(next_ids), parts[2]
+        if ctx.card_gather:
+            parts.append(h_ids)
+        else:
+            h_dev = _fetch(ctx, None, h_ids)
+        maps = ctx.up_idx.take(sum(len(t) for t in parts)).view(-1)
+        torch.cat(parts, out=maps)
+        maps_dev = _upload(ctx, maps, ctx.up_idx)
+        g_end = 2 * n_next + len(gp)
+        if ctx.card_gather:
+            h_dev = _fetch(ctx, maps_dev[g_end:])  # the arriving ids
     ctx.h2d_bytes += _nbytes(h_dev) + _nbytes(maps)
-    maps_dev = maps_dev[:g_end].long()
-    shc_next, grad_next, g_out = _advance_rows(shc, grad_buf, h_dev, maps_dev, n_next)
+    ctx.fetched_rows += len(h_ids)
+    with tm.span("clm.advance.rows"):
+        maps_dev = maps_dev[:g_end].long()
+        shc_next, grad_next, g_out = _advance_rows(shc, grad_buf, h_dev, maps_dev,
+                                                   n_next)
     if ctx.card_gather:
         return shc_next, grad_next, g_out, prev_dev[maps_dev[2 * n_next:]], n_store
     return shc_next, grad_next, g_out, prev_ids[gp.long()], n_store
@@ -583,11 +597,15 @@ def _flush(ctx: ClmContext, grad_buf, ids_dev, ids_host, departed=None):
     return grad_buf[perm_dev], ids_dev[perm_dev], n_store
 
 
-def _timed_sparse_step(ctx: ClmContext, rows, grad_scale: float, step: int):
-    """The worker thread's host Adam over `rows`, timed for the meter."""
-    t0 = time.perf_counter()
-    ctx.adam.sparse_step(ctx.sh_host, ctx.sh_grad_host, rows, grad_scale, step)
-    ctx.adam_work_s += time.perf_counter() - t0
+def _timed_sparse_step(ctx: ClmContext, rows, grad_scale: float, step: int, tm: Timer,
+                       batch: int):
+    """The worker thread's host Adam over `rows`, timed for the meter, in
+    the span `clm.host_adam` (its range carries the batch's number in `tm`
+    and the row count)."""
+    with tm.span("clm.host_adam", batch, len(rows)):
+        t0 = time.perf_counter()
+        ctx.adam.sparse_step(ctx.sh_host, ctx.sh_grad_host, rows, grad_scale, step)
+        ctx.adam_work_s += time.perf_counter() - t0
 
 
 def _sum_over_data(ctx: ClmContext, ids):
@@ -608,7 +626,7 @@ def _sum_over_data(ctx: ClmContext, ids):
 
 
 def _drain(ctx: ClmContext, pending, futures, grad_scale: float, step: int,
-           stop_update: bool):
+           stop_update: bool, tm: Timer):
     """Wait for one download and scatter-add its rows into the host
     gradients (under card_gather: wait for the card's scatter-add), sum the
     finish set over the data group where the chains split the batch, then
@@ -624,7 +642,7 @@ def _drain(ctx: ClmContext, pending, futures, grad_scale: float, step: int,
         _sum_over_data(ctx, summed)
     if len(rows) and not stop_update:
         futures.append(ctx.executor.submit(_timed_sparse_step, ctx, rows,
-                                           grad_scale, step))
+                                           grad_scale, step, tm, tm.batch))
 
 
 def _plan(state, ctx: ClmContext, cams, width: int, height: int, cfg, n_chains: int = 1,
@@ -641,8 +659,9 @@ def _plan(state, ctx: ClmContext, cams, width: int, height: int, cfg, n_chains: 
     row0 = 0 if mesh is None else mesh.gauss_index * ctx.sh_host.shape[0]
     F = oc.calculate_filters(p.xyz, p.quat, p.log_scale, state.alive, cams.viewmats,
                              cams.Ks, width, height, cfg.model.radius_clip,
-                             sample_phase=-row0 % oc.SAMPLE_STRIDE)
-    flat = torch.cat(F.ids).cpu()
+                             sample_phase=-row0 % oc.SAMPLE_STRIDE, tm=tm)
+    with tm.span("clm.filters.readback"):
+        flat = torch.cat(F.ids).cpu()
     ids_host = list(torch.split(flat, F.counts.tolist()))
     tm.stop("clm.filters")
 
@@ -672,8 +691,25 @@ def train_one_batch(state, opt_state, ctx: ClmContext, cams, gt, sh_degree,
     moments and `steps` (`optim.adam_update_`; not under
     --stop_update_param), and the two densification statistics. No
     parameter-sized copy is made; a caller that needs the starting state
-    clones it first."""
+    clones it first.
+
+    Spans in `timers`: the root `clm.batch`; `clm.filters` (with
+    `.project`, `.readback`) and `clm.order` (`_plan`); per camera
+    `clm.fetch_h2d`, `clm.micro` (over `strategies/base.py`'s `render.*`,
+    `render.loss`, `render.backward` and `clm.accumulate`), `clm.advance`
+    (with `.transition`, `.fetch`, `.rows`) and `clm.d2h_scatter`; the card
+    Adam `clm.adam`; `clm.tail`, from there to the return (the wait for the
+    card, the last drain, the host Adam's futures); and `clm.host_adam` on
+    the worker thread."""
     tm = timers if timers is not None else Timer(enabled=False)
+    with tm.batch_span("clm.batch"):
+        return _batch(state, opt_state, ctx, cams, gt, sh_degree, lrs, adam_cfg,
+                      background, width, height, cfg, tm)
+
+
+def _batch(state, opt_state, ctx: ClmContext, cams, gt, sh_degree, lrs, adam_cfg,
+           background, width, height, cfg, tm: Timer):
+    """The body of `train_one_batch`."""
     p = state.params
     bsz = gt.shape[0]
     mesh = ctx.mesh
@@ -710,10 +746,12 @@ def train_one_batch(state, opt_state, ctx: ClmContext, cams, gt, sh_degree,
     for pos in range(S):
         cam = int(mine[pos])
         ids_h = ids_host[cam]
+        ctx.needed_rows += len(ids_h)
         if shc is None:  # the first camera, or retention off
             tm.start("clm.fetch_h2d")
             shc = _fetch(ctx, F.ids[cam], ids_h)
             ctx.h2d_bytes += _nbytes(shc)
+            ctx.fetched_rows += len(ids_h)
             grad_buf = torch.zeros_like(shc)
             tm.stop("clm.fetch_h2d", sync=shc)
 
@@ -734,7 +772,7 @@ def train_one_batch(state, opt_state, ctx: ClmContext, cams, gt, sh_degree,
             tm.start("clm.advance")
             shc, grad_buf, g_out, g_ids, n_store = _advance(
                 ctx, shc, grad_buf, ids_h, ids_host[int(mine[pos + 1])], F.ids[cam],
-                departed)
+                departed, tm)
             tm.stop("clm.advance")
         else:  # the last camera, or retention off: flush the whole set
             g_out, g_ids, n_store = _flush(ctx, grad_buf, F.ids[cam], ids_h, departed)
@@ -749,7 +787,7 @@ def train_one_batch(state, opt_state, ctx: ClmContext, cams, gt, sh_degree,
             new_pending = (*_download(ctx, g_out), g_ids, rows, summed)
         if pending is not None:
             tm.start("clm.d2h_scatter")
-            _drain(ctx, pending, futures, grad_scale, step, stop_update)
+            _drain(ctx, pending, futures, grad_scale, step, stop_update, tm)
             tm.stop("clm.d2h_scatter")
         pending = new_pending
 
@@ -763,27 +801,29 @@ def train_one_batch(state, opt_state, ctx: ClmContext, cams, gt, sh_degree,
     # 5. Adam of the four card groups in place, the accumulators divided in
     # their own storage; the SH placeholder passes through
     STAGES.enter("clm.adam")
-    if not stop_update:
-        for f in oc.GPU_FIELDS:
-            getattr(acc, "g_" + f).div_(bsz)
-        grads = GaussianParams(acc.g_xyz, acc.g_opacity, acc.g_log_scale, acc.g_quat,
-                               p.sh)
-        mask = (state.alive & acc.vis_any) if sparse_adam else state.alive
-        adam_update_(p, grads, opt_state, {k: lrs[k] for k in oc.GPU_FIELDS}, adam_cfg,
-                     mask)
-    state.xyz_grad_accum.add_(acc.accum)
-    state.denom.add_(acc.denom)
+    with tm.span("clm.adam"):
+        if not stop_update:
+            for f in oc.GPU_FIELDS:
+                getattr(acc, "g_" + f).div_(bsz)
+            grads = GaussianParams(acc.g_xyz, acc.g_opacity, acc.g_log_scale, acc.g_quat,
+                                   p.sh)
+            mask = (state.alive & acc.vis_any) if sparse_adam else state.alive
+            adam_update_(p, grads, opt_state, {k: lrs[k] for k in oc.GPU_FIELDS},
+                         adam_cfg, mask)
+        state.xyz_grad_accum.add_(acc.accum)
+        state.denom.add_(acc.denom)
     if stop_update:  # no host Adam consumed this batch's gradient rows
         ctx.grad_zero = False
 
     # the last download and the host Adam, after the card's work is done
-    if ctx.device.type == "cuda":
-        torch.cuda.current_stream(ctx.device).synchronize()
-    t_dev_done = time.perf_counter()
-    _drain(ctx, pending, futures, grad_scale, step, stop_update)
-    for f in futures:
-        f.result()
-    ctx.trailing_s += time.perf_counter() - t_dev_done
+    with tm.span("clm.tail"):
+        if ctx.device.type == "cuda":
+            torch.cuda.current_stream(ctx.device).synchronize()
+        t_dev_done = time.perf_counter()
+        _drain(ctx, pending, futures, grad_scale, step, stop_update, tm)
+        for f in futures:
+            f.result()
+        ctx.trailing_s += time.perf_counter() - t_dev_done
     ctx.n_batches += 1
     return state, opt_state, ctx, StepOut(losses, max(n_isects), acc.vis_any, n_isects)
 

@@ -10,6 +10,11 @@ loop runs over groups of G cameras instead: one `render_cams` (projection
 and SH batched, compositing per camera), the group's losses summed, one
 backward. ``eval_one_cam`` and
 ``eval_batch`` are the eval renders of the training loop (train.py).
+
+Spans (`utils/timer.py` `OFF`): a step is the root `step.batch`; each
+camera's or group's render (`strategies/base.py`'s `render.*`),
+`render.loss`, `render.backward` and `step.stats` (the densification
+statistics); then `step.adam`.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from clm_gs_tpu_torch.models.gaussians import GaussianParams, GaussianState
 from clm_gs_tpu_torch.optim import AdamConfig, AdamState, adam_step
 from clm_gs_tpu_torch.strategies.base import (photometric_loss, photometric_loss_batch,
                                               render_cams, render_one_cam)
+from clm_gs_tpu_torch.utils.timer import OFF
 
 
 class StepOut(NamedTuple):
@@ -89,32 +95,36 @@ def batch_grads(
                 leaf, alive, cams.viewmats[b], cams.Ks[b], cams.camtoworlds[b, :3, 3],
                 sh_degree, width, height, background,
             )
-            cam_losses = photometric_loss(out.image, gt_images[b], lambda_dssim,
-                                          loss_scale)[None]
+            with OFF.span("render.loss"):
+                cam_losses = photometric_loss(out.image, gt_images[b], lambda_dssim,
+                                              loss_scale)[None]
             n_isects.append(out.n_isects)
         else:
             g = slice(b, b + G)
             out = render_cams(leaf, alive, cams.viewmats[g], cams.Ks[g],
                               cams.camtoworlds[g, :3, 3], sh_degree, width, height,
                               background)
-            cam_losses = photometric_loss_batch(out.images, gt_images[g], lambda_dssim,
-                                                loss_scale)
+            with OFF.span("render.loss"):
+                cam_losses = photometric_loss_batch(out.images, gt_images[g], lambda_dssim,
+                                                    loss_scale)
             n_isects.extend(out.n_isects)
         out.means2d.retain_grad()
         # one backward of the group's summed losses: the gradients
         # accumulate over its cameras as over single cameras
-        cam_losses.sum().backward()
+        with OFF.span("render.backward"):
+            cam_losses.sum().backward()
         losses.extend(cam_losses.detach())
-        vis = (out.radii > 0).reshape(-1, C)  # (G, C)
-        vis_any |= vis.any(dim=0)
-        if accumulate_stats:
-            g2d = out.means2d.grad
-            if g2d is None:
-                g2d = torch.zeros_like(out.means2d)
-            visf = vis.float()
-            grad_norm_sum += (torch.linalg.norm(g2d.reshape(-1, C, 2) * half_wh, dim=-1)
-                              * visf).sum(dim=0)
-            vis_count += visf.sum(dim=0)
+        with OFF.span("step.stats"):
+            vis = (out.radii > 0).reshape(-1, C)  # (G, C)
+            vis_any |= vis.any(dim=0)
+            if accumulate_stats:
+                g2d = out.means2d.grad
+                if g2d is None:
+                    g2d = torch.zeros_like(out.means2d)
+                visf = vis.float()
+                grad_norm_sum += (torch.linalg.norm(g2d.reshape(-1, C, 2) * half_wh,
+                                                    dim=-1) * visf).sum(dim=0)
+                vis_count += visf.sum(dim=0)
     grads = GaussianParams(
         *(p.grad if p.grad is not None else torch.zeros_like(p)
           for p in leaf.astuple())
@@ -144,28 +154,31 @@ def train_step(
     """One batched iteration (bsz = B cameras), the cameras rendered in
     groups of `group_size(micro_group, B)` (module docstring; one at a time
     by default). Returns (state, opt_state, StepOut)."""
-    params = state.params
-    alive = state.alive
-    bsz = gt_images.shape[0]
-    bg = batch_grads(params, alive, cams, gt_images, sh_degree, background,
-                     width, height, accumulate_stats, lambda_dssim, loss_scale,
-                     micro_group)
-    if stop_update_param:
-        new_params, new_opt = params, opt_state
-    else:
-        grads = GaussianParams(*(g / bsz for g in bg.grads.astuple()))
-        update_mask = (alive & bg.visible_any) if sparse_adam else alive
-        new_params, new_opt = adam_step(
-            params, grads, opt_state, lrs, adam_cfg, update_mask
-        )
-    new_state = GaussianState(
-        params=new_params,
-        alive=alive,
-        n_alive=state.n_alive,
-        xyz_grad_accum=state.xyz_grad_accum + bg.grad_norm_sum,
-        denom=state.denom + bg.vis_count,
-        max_radii2d=state.max_radii2d,
-    )
+    with OFF.batch_span("step.batch"):
+        params = state.params
+        alive = state.alive
+        bsz = gt_images.shape[0]
+        bg = batch_grads(params, alive, cams, gt_images, sh_degree, background,
+                         width, height, accumulate_stats, lambda_dssim, loss_scale,
+                         micro_group)
+        with OFF.span("step.adam"):
+            if stop_update_param:
+                new_params, new_opt = params, opt_state
+            else:
+                grads = GaussianParams(*(g / bsz for g in bg.grads.astuple()))
+                update_mask = (alive & bg.visible_any) if sparse_adam else alive
+                new_params, new_opt = adam_step(
+                    params, grads, opt_state, lrs, adam_cfg, update_mask
+                )
+        with OFF.span("step.stats"):
+            new_state = GaussianState(
+                params=new_params,
+                alive=alive,
+                n_alive=state.n_alive,
+                xyz_grad_accum=state.xyz_grad_accum + bg.grad_norm_sum,
+                denom=state.denom + bg.vis_count,
+                max_radii2d=state.max_radii2d,
+            )
     return new_state, new_opt, StepOut(bg.losses, max(bg.n_isects),
                                        bg.visible_any, bg.n_isects)
 

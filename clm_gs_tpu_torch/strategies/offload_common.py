@@ -35,6 +35,7 @@ from clm_gs_tpu_torch.ops.projection import _project_one_cam, covar_cols
 from clm_gs_tpu_torch.parallel.shard import gather_table, rasterize_table, table_rows
 from clm_gs_tpu_torch.strategies.base import (photometric_loss, rasterize_inputs,
                                               render_one_cam)
+from clm_gs_tpu_torch.utils.timer import OFF
 
 GPU_FIELDS = ("xyz", "opacity", "log_scale", "quat")
 # the camera-order TSP samples every SAMPLE_STRIDE-th row
@@ -57,7 +58,7 @@ class Filters(NamedTuple):
 def calculate_filters(xyz, quat, log_scale, alive, viewmats, Ks, width: int,
                       height: int, radius_clip: float,
                       sample_stride: int = SAMPLE_STRIDE, sample_phase: int = 0,
-                      chunk_rows: int = FILTER_CHUNK_ROWS) -> Filters:
+                      chunk_rows: int = FILTER_CHUNK_ROWS, tm=OFF) -> Filters:
     """Each camera's visible rows by projection alone (no SH needed). Rows
     in the outer loop, `chunk_rows` at a time, cameras in the inner: a
     chunk's scales and world covariance are computed once for all cameras,
@@ -69,7 +70,9 @@ def calculate_filters(xyz, quat, log_scale, alive, viewmats, Ks, width: int,
     pass's. The TSP sample takes rows sample_phase, sample_phase +
     sample_stride, ... (on a gauss shard: the rows whose global id is a
     multiple of the stride); chunks start at multiples of the stride.
-    `alive` None: every row."""
+    `alive` None: every row. Spans, in the Timer `tm`: a chunk's queued
+    projections (`clm.filters.project`) and its read-backs
+    (`clm.filters.readback`)."""
     if chunk_rows % sample_stride:
         raise ValueError(f"chunk_rows {chunk_rows} is not a multiple of the sample "
                          f"stride {sample_stride}")
@@ -81,12 +84,15 @@ def calculate_filters(xyz, quat, log_scale, alive, viewmats, Ks, width: int,
         means = xyz[lo:hi]
         live = (torch.ones(hi - lo, dtype=torch.bool, device=xyz.device) if alive is None
                 else alive[lo:hi])
-        covar6 = covar_cols(quat[lo:hi], torch.exp(log_scale[lo:hi]))
-        vis = torch.stack([
-            _project_one_cam(means, covar6, viewmats[b], Ks[b], width, height,
-                             radius_clip, live)[0] > 0
-            for b in range(B)])
-        rows = (torch.nonzero(vis)[:, 1].to(torch.int32) + lo).split(vis.sum(1).tolist())
+        with tm.span("clm.filters.project"):
+            covar6 = covar_cols(quat[lo:hi], torch.exp(log_scale[lo:hi]))
+            vis = torch.stack([
+                _project_one_cam(means, covar6, viewmats[b], Ks[b], width, height,
+                                 radius_clip, live)[0] > 0
+                for b in range(B)])
+        with tm.span("clm.filters.readback"):
+            rows = (torch.nonzero(vis)[:, 1].to(torch.int32) + lo).split(
+                vis.sum(1).tolist())
         for b in range(B):
             ids[b].append(rows[b])
         # a copy: a view would keep every chunk's (B, rows) visibility alive
@@ -145,8 +151,10 @@ def _render(compact: GaussianParams, viewmat, Kmat, campos, sh_degree: int,
         return out.image, out.means2d, out.radii, out.n_isects
     means2d, conics, colors, opac, depths, radii = rasterize_inputs(
         compact, None, viewmat, Kmat, campos, sh_degree, width, height)
-    table, _ = gather_table(mesh, table_rows(means2d, conics, colors, opac, depths, radii))
-    image, _, n_isects = rasterize_table(table, width, height, background)
+    with OFF.span("render.rasterize"):
+        table, _ = gather_table(mesh, table_rows(means2d, conics, colors, opac, depths,
+                                                 radii))
+        image, _, n_isects = rasterize_table(table, width, height, background)
     return image, means2d, radii, n_isects
 
 
@@ -162,8 +170,10 @@ def micro_step_visible(params: GaussianParams, ids, shc, viewmat, Kmat, campos,
     image, means2d, radii, n_isects = _render(leaf, viewmat, Kmat, campos, sh_degree,
                                               width, height, background, mesh)
     means2d.retain_grad()
-    loss = photometric_loss(image, gt, lambda_dssim, loss_scale)
-    loss.backward()
+    with OFF.span("render.loss"):
+        loss = photometric_loss(image, gt, lambda_dssim, loss_scale)
+    with OFF.span("render.backward"):
+        loss.backward()
     grads = GaussianParams(*(t.grad if t.grad is not None else torch.zeros_like(t)
                              for t in leaf.astuple()))
     probe = means2d.grad
@@ -217,19 +227,21 @@ def clm_fused_step(params: GaussianParams, shc, grad_buf, ids, viewmat, Kmat,
                    loss_scale: float = 1.0, mesh=None):
     """One clm camera: the micro step, then every accumulation of the batch
     in place (the four attribute gradients, the densification statistics,
-    the visibility union and the instance counts). Returns (loss,
-    grad_buf + the camera's compact SH gradients)."""
+    the visibility union and the instance counts: the span
+    `clm.accumulate`). Returns (loss, grad_buf + the camera's compact SH
+    gradients)."""
     out = micro_step_visible(params, ids, shc, viewmat, Kmat, campos, gt,
                              sh_degree, background, width, height, lambda_dssim,
                              loss_scale, mesh)
-    idx = ids.long()
-    for f in GPU_FIELDS:
-        getattr(acc, "g_" + f).index_add_(0, idx, getattr(out.grads, f))
-    scatter_stats(acc.accum, acc.denom, ids, out.probe_grad, out.radii, width,
-                  height)
-    acc.vis_any[idx] = True
-    acc.n_isects.append(out.n_isects)
-    return out.loss, grad_buf + out.grads.sh
+    with OFF.span("clm.accumulate"):
+        idx = ids.long()
+        for f in GPU_FIELDS:
+            getattr(acc, "g_" + f).index_add_(0, idx, getattr(out.grads, f))
+        scatter_stats(acc.accum, acc.denom, ids, out.probe_grad, out.radii, width,
+                      height)
+        acc.vis_any[idx] = True
+        acc.n_isects.append(out.n_isects)
+        return out.loss, grad_buf + out.grads.sh
 
 
 @torch.no_grad()

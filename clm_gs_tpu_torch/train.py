@@ -572,10 +572,14 @@ def _training(cfg: Config, device, closing: contextlib.ExitStack):
 
 
 def _start_profiler(device):
+    """--profile: CPU and CUDA activities on every thread, so that the
+    ranges of clm's host-Adam worker (`utils/timer.py`) are traced too."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    prof = torch.profiler.profile(activities=acts)
+    prof = torch.profiler.profile(
+        activities=acts,
+        experimental_config=torch._C._profiler._ExperimentalConfig(profile_all_threads=True))
     prof.start()
     return prof
 

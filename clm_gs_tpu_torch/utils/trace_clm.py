@@ -8,13 +8,12 @@ by span against the card's activity.
 
 `run` trains the BigCity scene at ROOT (`utils/bigcity.py run`, with
 `--enable_timer --do_not_save` and the flags after `--`, which override)
-for `iters` iterations, traces batch `trace_batch` (1-based) with the
-training CLI's `--profile` window (CPU and CUDA activities, the Chrome
-trace in OUT/profile/trace.json), and has every `Timer` span of the run
-open a `torch.profiler.record_function` range of its name, so that the
-trace shows the spans on the main thread. Then it reads the trace and
-prints one JSON line: the card and its power limit, the run's record, and
-`read`'s result.
+for `iters` iterations and traces batch `trace_batch` (1-based) with the
+training CLI's `--profile` window (CPU and CUDA activities, every thread,
+the Chrome trace in OUT/profile/trace.json), where every `Timer` span of
+the run is a profiler range of its name (`utils/timer.py`). Then it reads
+the trace and prints one JSON line: the card and its power limit, the
+run's record, and `read`'s result.
 
 `read` takes a Chrome trace and returns, for each span name, its calls,
 its host milliseconds, and of those the milliseconds in which the card ran
@@ -93,35 +92,6 @@ def read(path, spans=None) -> dict:
                                   if out.get(WINDOW) else None)}
 
 
-def _ranged_timer():
-    """Patch `utils.timer.Timer` so that an enabled timer's spans also open
-    and close a record_function range of their name; returns the undo."""
-    import torch
-
-    from clm_gs_tpu_torch.utils import timer as T
-
-    start, stop = T.Timer.start, T.Timer.stop
-
-    def ranged_start(self, key, sync=None):
-        start(self, key, sync)
-        if self.enabled:
-            rf = torch.profiler.record_function(key)
-            rf.__enter__()
-            self.__dict__.setdefault("_ranges", {})[key] = rf
-
-    def ranged_stop(self, key, sync=None):
-        stop(self, key, sync)
-        rf = self.__dict__.get("_ranges", {}).pop(key, None)
-        if rf is not None:
-            rf.__exit__(None, None, None)
-
-    T.Timer.start, T.Timer.stop = ranged_start, ranged_stop
-
-    def undo():
-        T.Timer.start, T.Timer.stop = start, stop
-    return undo
-
-
 def run(root, out, iters: int = 192, trace_batch: int = 3, extra=(), device="cuda") -> dict:
     """Train the BigCity scene at `root` into `out` with batch `trace_batch`
     traced (module docstring); returns the run's record and `read` of the
@@ -138,11 +108,7 @@ def run(root, out, iters: int = 192, trace_batch: int = 3, extra=(), device="cud
     flags = ["--enable_timer", "--do_not_save", "--profile",
              "--profile_start_iter", str(first),
              "--profile_end_iter", str(first + bsz - 1)] + list(extra)
-    undo = _ranged_timer()
-    try:
-        rec = bigcity.run(root, out, iters, extra=flags, device=device)
-    finally:
-        undo()
+    rec = bigcity.run(root, out, iters, extra=flags, device=device)
     trace = os.path.join(out, "profile", "trace.json")
     return {"card": nvidia_smi(), "trace": trace, "traced_iters": [first, first + bsz - 1],
             "flags": flags, "run": {k: rec.get(k) for k in (

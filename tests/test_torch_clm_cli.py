@@ -137,14 +137,19 @@ def test_growth_reset_checkpoint_and_resume(scene, tmp_path, monkeypatch):
     for f in FIELDS:
         np.testing.assert_array_equal(got[f], want[f])
     # --enable_timer: one span per call of the loop; the clm spans per
-    # camera (4 a batch), per transition (3 a batch) and per drain
+    # batch, per row chunk of the filters (one here) and their read-back,
+    # per camera (4 a batch), per transition (3 a batch), per drain and per
+    # finish set the host Adam takes (on its worker thread)
     spans = {ln.split(": sum ")[0]: int(ln.split(" ms over ")[1].split()[0])
              for ln in log.splitlines() if ": sum " in ln and " ms over " in ln}
     assert spans == {"data_next": 3, "stack_cameras": 3, "train_step": 3, "log": 4,
                      "eval": 1, "count_densify": 1, "grow_capacity": 1, "densify": 1,
                      "reset_opacity": 1, "save": 1, "checkpoint": 2,
-                     "clm.filters": 3, "clm.order": 3, "clm.fetch_h2d": 3,
-                     "clm.micro": 12, "clm.advance": 9, "clm.d2h_scatter": 9,
+                     "clm.batch": 3, "clm.filters": 3, "clm.filters.project": 3,
+                     "clm.filters.readback": 6, "clm.order": 3, "clm.fetch_h2d": 3,
+                     "clm.micro": 12, "clm.advance": 9, "clm.advance.transition": 9,
+                     "clm.advance.fetch": 9, "clm.advance.rows": 9, "clm.d2h_scatter": 9,
+                     "clm.adam": 3, "clm.tail": 3, "clm.host_adam": 6,
                      "clm.grow_pin": 1, "clm.grow_copy": 1}
 
     # checkpoints after the first batch and after the second (its growth and

@@ -1,5 +1,5 @@
 """utils/trace_clm.py: the card's idle time within each span of a Chrome
-trace (`read`), and the Timer spans as profiler ranges (`_ranged_timer`).
+trace (`read`), and the Timer's spans as the profiler ranges it reads.
 
 `read` is held to hand-counted intervals: device events on two streams that
 overlap each other and straddle the span edges, a span with no device
@@ -65,24 +65,27 @@ def test_read_selects_spans(tmp_path):
     assert got["spans"]["clm.order"]["card_idle_ms"] == pytest.approx(0.01)
 
 
-def test_timer_spans_become_profiler_ranges():
-    """Under the patch an enabled timer's spans appear as ranges of their
-    names (nested ones too), a disabled timer's do not, and the undo
-    restores the Timer."""
-    undo = trace_clm._ranged_timer()
-    try:
-        on, off = Timer(enabled=True), Timer(enabled=False)
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-            on.start("train_step")
-            on.start("clm.micro")
-            torch.ones(4).sum()
-            on.stop("clm.micro")
-            off.start("clm.order")
-            off.stop("clm.order")
-            on.stop("train_step")
-        names = {e.name for e in prof.events()}
-    finally:
-        undo()
-    assert {"train_step", "clm.micro"} <= names and "clm.order" not in names
-    assert on.counts == {"train_step": 1, "clm.micro": 1}
-    assert Timer.start.__name__ == "start" and Timer.stop.__name__ == "stop"
+def test_timer_spans_become_profiler_ranges(tmp_path):
+    """The Timer itself opens ranges under a profiler: an enabled timer's
+    spans and a disabled timer's alike (nested ones too), which `read` finds
+    in the exported trace; outside a profiler, none."""
+    on, off = Timer(enabled=True), Timer(enabled=False)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        on.start("train_step")
+        on.start("clm.micro")
+        torch.ones(4).sum()
+        on.stop("clm.micro")
+        off.start("clm.order")
+        off.stop("clm.order")
+        on.stop("train_step")
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    spans = trace_clm.read(str(path))["spans"]
+    assert {k: v["calls"] for k, v in spans.items()} == {
+        "train_step": 1, "clm.micro": 1, "clm.order": 1}
+    assert on.counts == {"train_step": 1, "clm.micro": 1} and not off.counts
+    on.start("after")
+    off.start("after")
+    assert not on._range_open and not off._range_open
+    on.stop("after")
+    off.stop("after")
