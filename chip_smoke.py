@@ -5,7 +5,7 @@
 
 Phases, one JSON line each:
   1. device: the card's name and power limit (nvidia-smi), then an nvcc build
-     of the six kernels from csrc/, one process per source.
+     of the seven kernels from csrc/, one process per source.
   2. kernels_mid: each kernel against its plain PyTorch version at a mid
      size (20,000 Gaussians, one 640x480 camera), and the kernel-path
      rasterizer against the dense oracle on a small scene.
@@ -26,6 +26,14 @@ Phases, one JSON line each:
      compositing kernel reports the (instance, pixel) slots its block shapes
      walk. At the mid size, fill is also held exactly to its plain version
      on channels whose only valid slot is the first, with n % 4 == 3.
+  5b. visibility: clm's visibility kernel (csrc/visibility.cu) against its
+     plain version, bit for bit at radius_clip 0 and 1.5, at bicycle's
+     shapes (phase 4's rows and its 4 cameras of 1237x822) and at BigCity's
+     (one FILTER_CHUNK_ROWS chunk of city rows at the 25M scene's spacing,
+     64 street cameras of 1600x900): the kernel's time, its bound (the
+     operations these rows need: the pairs between the planes by the
+     view's depth) and the plain version's time. The phases that run clm
+     report its launches.
   6. naive_step, on phase 4's scene: from one state with the same seeded
      moments on the card and on the host, one naive_offload.train_one_batch
      (parameters and moments on the host, the host Adam of
@@ -239,6 +247,21 @@ GATHER_SOURCE = ("clm_gs_tpu_torch/csrc/pinned_gather.cu", "clm_gs_tpu/utils/hos
 SCATTER = "pinned_scatter"
 SCATTER_SOURCE = ("clm_gs_tpu_torch/csrc/pinned_scatter.cu",
                   "clm_gs_tpu/utils/hostmem.py:135")
+# clm's visibility pass: a kernel of the port that replaces no Pallas
+# kernel, as the JAX package's calculate_filters is fused by XLA.
+VISIBILITY = "visibility"
+VISIBILITY_SOURCE = ("clm_gs_tpu_torch/csrc/visibility.cu",
+                     "none: clm_gs_tpu/strategies/offload_common.py calculate_filters "
+                     "is XLA-fused")
+# its float32 operations, counted from its source (a division, square
+# root, rsqrt, exp, ceil, clamp or compare one): a live row's rotation and
+# world covariance (106), a (live row, camera) pair's view transform and
+# plane tests (20), and the rest of a pair between the planes (150); and the
+# bytes a row reads (xyz, quat, log_scale, alive)
+OPS_VIS_ROW = 106
+OPS_VIS_PAIR = 20
+OPS_VIS_FRONT = 150
+VIS_ROW_BYTES = 41
 # bytes of one SH row (48 float32)
 ROW_BYTES = 192
 # `python -m MODULE ARGS...` as runpy runs it, then one JSON line on stdout:
@@ -430,6 +453,11 @@ def run(torch, report):
     report["kernels_full"] = full
     lap("kernels_full")
 
+    # 5b. clm's visibility kernel at bicycle's and BigCity's shapes
+    report["visibility"] = visibility_checks(torch, scene)
+    emit({"phase": "visibility", **report["visibility"]})
+    lap("visibility")
+
     # 6. naive_offload's batch on the same scene, which it takes over
     box = [scene]
     del scene
@@ -497,6 +525,7 @@ def run(torch, report):
     sc = report["clm_step"]["pinned_scatter"]
     sc_city = report["bigcity"]["kernels"]["pinned_scatter"]
     k4 = report["bench4k"]["kernels"]
+    vis = report["visibility"]
     emit({"kernels": [
         {"name": k, "status": "ported", "route": "cuda", "source": KERNELS[k][0],
          "replaces": KERNELS[k][1], "launches": launches.get(k, 0), **other_launches(k),
@@ -545,7 +574,15 @@ def run(torch, report):
          "bigcity_max_abs_err": sc_city["max_abs_err"],
          "bigcity_host_path_ms": sc_city["host_path_ms"],
          "bigcity_first_departure_share":
-             report["bigcity"]["pinned_ab"]["first_departure_share"]}
+             report["bigcity"]["pinned_ab"]["first_departure_share"]},
+        # its main path is clm's plan, once a row chunk for the batch
+        {"name": VISIBILITY, "status": "added", "route": "cuda",
+         "source": VISIBILITY_SOURCE[0], "replaces": VISIBILITY_SOURCE[1],
+         "launches": report["clm_step"]["launches"].get(VISIBILITY, 0),
+         **other_launches(VISIBILITY),
+         **{f"{shape}_{k}": vis[shape][k] for shape in ("bicycle", "bigcity")
+            for k in ("rows", "cameras", "equal", "ms", "bound_ms", "bound_by",
+                      "share_of_bound", "plain_ms")}}
     ]})
 
 
@@ -899,6 +936,70 @@ def kernel_checks(torch, n=None, w=None, h=None, reps=10, scene=None, timed=True
             bound_ms=b, bound_by=by,
             # the main path's gather of the rows into sorted order, in torch
             gather_ms=time_ms(torch, lambda: rk[perm].contiguous(), reps))
+    return out
+
+
+def visibility_check(torch, xyz, quat, log_scale, alive, viewmats, Ks, w, h, reps=10):
+    """csrc/visibility.cu against its plain version on one row chunk for a
+    batch of cameras: the masks bit for bit at radius_clip 0 and 1.5, the
+    kernel's time, its bound and the plain version's time."""
+    from clm_gs_tpu_torch.strategies import offload_common as oc
+
+    rows, B = xyz.shape[0], viewmats.shape[0]
+    cams = oc.camera_table(viewmats, Ks, w, h)
+    args = (xyz, quat, log_scale, alive)
+    differ, visible = {}, {}
+    for clip in (0.0, 1.5):
+        k = oc.visibility_cuda(*args, cams, w, h, clip)
+        p = oc.visibility_plain(*args, viewmats, Ks, w, h, clip)
+        differ[str(clip)] = int((k != p).sum())
+        visible[str(clip)] = int(p.sum())
+        del k, p
+    check(not any(differ.values()),
+          f"visibility: (camera, row) pairs that differ from the plain version at "
+          f"{rows} rows and {B} cameras, by radius_clip: {differ}")
+    # the work these rows need: the live pairs between the planes, by the
+    # view's depth (near the planes this float32 product may round apart
+    # from the kernel's, a handful of pairs)
+    z = xyz @ viewmats[:, 2, :3].T + viewmats[:, 2, 3]
+    front = int(((z > 0.01) & (z < 1e10) & alive[:, None]).sum())
+    del z
+    n_live = int(alive.sum())
+    b, by = _bound(rows * VIS_ROW_BYTES + B * rows,
+                   OPS_VIS_ROW * n_live + OPS_VIS_PAIR * n_live * B + OPS_VIS_FRONT * front)
+    ms = time_ms(torch, lambda: oc.visibility_cuda(*args, cams, w, h, 0.0), reps)
+    return {"rows": rows, "cameras": B, "width": w, "height": h, "live_rows": n_live,
+            "front_pairs": front, "visible_pairs": visible, "equal": True,
+            "differ": differ, "ms": ms, "bound_ms": b, "bound_by": by,
+            "share_of_bound": b / ms,
+            "plain_ms": time_ms(torch, lambda: oc.visibility_plain(
+                *args, viewmats, Ks, w, h, 0.0), 2, 1)}
+
+
+def visibility_checks(torch, scene):
+    """`visibility_check` at bicycle's shapes (the full scene's rows and its
+    4 cameras of 1237x822) and at BigCity's: one FILTER_CHUNK_ROWS chunk of
+    city rows (`bigcity.city_gaussians`, log scales shifted to the
+    BIGCITY_N scene's spacing, every row alive) and 64 street cameras of
+    1600x900 (`bigcity.serpentine_cameras`)."""
+    import numpy as np
+
+    from clm_gs_tpu_torch.data.cameras import stack_cameras
+    from clm_gs_tpu_torch.strategies import offload_common as oc
+    from clm_gs_tpu_torch.utils.bigcity import SEED, city_gaussians, serpentine_cameras
+
+    state, cb = scene[0], scene[1]
+    p = state.params
+    out = {"bicycle": visibility_check(torch, p.xyz, p.quat, p.log_scale, state.alive,
+                                       cb.viewmats, cb.Ks, cb.width, cb.height)}
+    rows = oc.FILTER_CHUNK_ROWS
+    xyz, log_scale, quat, _, _ = city_gaussians(rows, np.random.RandomState(SEED))
+    log_scale += np.float32(0.5 * np.log(rows / BIGCITY_N))
+    city = stack_cameras(serpentine_cameras(64, 1600, 900), device="cuda")
+    t = [torch.from_numpy(a).cuda() for a in (xyz, quat, log_scale)]
+    out["bigcity"] = visibility_check(torch, *t, torch.ones(rows, dtype=torch.bool,
+                                                            device="cuda"),
+                                      city.viewmats, city.Ks, 1600, 900)
     return out
 
 

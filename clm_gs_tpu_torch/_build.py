@@ -27,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = CSRC / "build"
 KERNELS = ("fill", "segreduce", "rasterize_fwd", "rasterize_bwd", "pinned_gather",
-           "pinned_scatter")
+           "pinned_scatter", "visibility")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -24,12 +24,14 @@ package's `micro_step_visible_batch`, one camera a rank).
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass, field
 from typing import List, NamedTuple
 
 import torch
 import torch.distributed as dist
 
+from clm_gs_tpu_torch import _build
 from clm_gs_tpu_torch.models.gaussians import GaussianParams
 from clm_gs_tpu_torch.ops.projection import _project_one_cam, covar_cols
 from clm_gs_tpu_torch.parallel.shard import gather_table, rasterize_table, table_rows
@@ -40,12 +42,16 @@ from clm_gs_tpu_torch.utils.timer import OFF
 GPU_FIELDS = ("xyz", "opacity", "log_scale", "quat")
 # the camera-order TSP samples every SAMPLE_STRIDE-th row
 SAMPLE_STRIDE = 32
-# rows a chunk of `calculate_filters` (a multiple of SAMPLE_STRIDE): one
-# camera's projection temporaries of a chunk and the chunk's (B, rows)
-# visibility live at once (2.6 GB of the card at 2^22 rows; an H100,
-# BigCity-25M); fewer rows add launches, as the host queues each op of each
-# camera
+# rows a chunk of `calculate_filters` (a multiple of SAMPLE_STRIDE): it
+# bounds the chunk's (B, rows) visibility mask, 128 MB at B = 64 (on the
+# card the kernel keeps no per-camera temporaries)
 FILTER_CHUNK_ROWS = 1 << 21
+# floats a camera of `camera_table` (csrc/visibility.cu kCamFloats)
+CAM_FLOATS = 20
+_VIS_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+                 ctypes.c_void_p]
 
 
 class Filters(NamedTuple):
@@ -54,42 +60,108 @@ class Filters(NamedTuple):
     sample: torch.Tensor  # (B, ceil(C / stride)) bool: TSP distance sample
 
 
+def camera_table(viewmats, Ks, width: int, height: int) -> torch.Tensor:
+    """(B, CAM_FLOATS) float32 on the cameras' device: per camera the
+    constants `_project_one_cam` computes before its per-row work, by its
+    own torch expressions over all B cameras at once: Rcw row-major, tcw,
+    fx, fy, cx, cy and the clamp bounds -lim_x_neg, lim_x_pos, -lim_y_neg,
+    lim_y_pos."""
+    fx, fy, cx, cy = Ks[:, 0, 0], Ks[:, 1, 1], Ks[:, 0, 2], Ks[:, 1, 2]
+    tan_fovx = 0.5 * width / fx
+    tan_fovy = 0.5 * height / fy
+    lim_x_pos = (width - cx) / fx + 0.3 * tan_fovx
+    lim_x_neg = cx / fx + 0.3 * tan_fovx
+    lim_y_pos = (height - cy) / fy + 0.3 * tan_fovy
+    lim_y_neg = cy / fy + 0.3 * tan_fovy
+    return torch.cat([
+        viewmats[:, :3, :3].reshape(-1, 9), viewmats[:, :3, 3],
+        torch.stack([fx, fy, cx, cy, -lim_x_neg, lim_x_pos, -lim_y_neg, lim_y_pos], 1),
+    ], 1).contiguous()
+
+
+def visibility_plain(xyz, quat, log_scale, alive, viewmats, Ks, width: int,
+                     height: int, radius_clip: float):
+    """(B, rows) bool: row r visible in camera b (`_project_one_cam`'s
+    radius > 0), one camera at a time. `alive` None: every row."""
+    if alive is None:
+        alive = torch.ones(xyz.shape[0], dtype=torch.bool, device=xyz.device)
+    covar6 = covar_cols(quat, torch.exp(log_scale))
+    return torch.stack([
+        _project_one_cam(xyz, covar6, viewmats[b], Ks[b], width, height, radius_clip,
+                         alive)[0] > 0
+        for b in range(viewmats.shape[0])])
+
+
+def visibility_cuda(xyz, quat, log_scale, alive, cams, width: int, height: int,
+                    radius_clip: float):
+    """The same through csrc/visibility.cu, bit for bit, given `cams`, the
+    `camera_table` of the cameras.
+
+    Replaces no Pallas kernel: the JAX package's calculate_filters is
+    fused by XLA. Bound by operations at B = 64 and by bytes at B <= 4: one
+    launch for all cameras, a thread a row, each row read once and its
+    world covariance kept in registers across the cameras."""
+    rows, dev = xyz.shape[0], xyz.device
+    if dev.type != "cuda":
+        raise ValueError("visibility_cuda takes CUDA tensors")
+    _build.require(xyz, "xyz", torch.float32, (rows, 3), dev)
+    _build.require(quat, "quat", torch.float32, (rows, 4), dev)
+    _build.require(log_scale, "log_scale", torch.float32, (rows, 3), dev)
+    if alive is not None:
+        _build.require(alive, "alive", torch.bool, (rows,), dev)
+    B = cams.shape[0]
+    _build.require(cams, "cams", torch.float32, (B, CAM_FLOATS), dev)
+    if quat.data_ptr() % 16:
+        raise ValueError("visibility_cuda reads quat rows as 16-byte words: "
+                         "its data must be 16-byte aligned")
+    if rows >= 2**31:
+        raise ValueError("visibility_cuda: rows exceed its indexing")
+    vis = torch.empty((B, rows), dtype=torch.bool, device=dev)
+    if rows and B:
+        _build.launch("visibility", "clmgs_visibility", _VIS_ARGTYPES, dev,
+                      _build.ptr(xyz), _build.ptr(quat), _build.ptr(log_scale),
+                      None if alive is None else _build.ptr(alive), rows,
+                      _build.ptr(cams), B, CAM_FLOATS, float(width), float(height),
+                      float(radius_clip), _build.ptr(vis))
+    return vis
+
+
 @torch.no_grad()
 def calculate_filters(xyz, quat, log_scale, alive, viewmats, Ks, width: int,
                       height: int, radius_clip: float,
                       sample_stride: int = SAMPLE_STRIDE, sample_phase: int = 0,
                       chunk_rows: int = FILTER_CHUNK_ROWS, tm=OFF) -> Filters:
-    """Each camera's visible rows by projection alone (no SH needed). Rows
-    in the outer loop, `chunk_rows` at a time, cameras in the inner: a
-    chunk's scales and world covariance are computed once for all cameras,
-    only one camera's chunk-sized intermediates live at a time, and the
-    chunk's (B, rows) visibility is read back once (the JAX package maps
-    over cameras inside one jit, which XLA fuses). Each camera's ids are its
-    chunks' ids offset by the chunk start, ascending; the work is
-    elementwise per row, so ids, counts and sample equal an unchunked
-    pass's. The TSP sample takes rows sample_phase, sample_phase +
-    sample_stride, ... (on a gauss shard: the rows whose global id is a
-    multiple of the stride); chunks start at multiples of the stride.
-    `alive` None: every row. Spans, in the Timer `tm`: a chunk's queued
-    projections (`clm.filters.project`) and its read-backs
+    """Each camera's visible rows by projection alone (no SH needed), a
+    chunk of `chunk_rows` rows at a time: CUDA tensors launch
+    `visibility_cuda` once a chunk for all cameras, CPU tensors take
+    `visibility_plain`; the chunk's (B, rows) visibility is read back once
+    (the JAX package maps over cameras inside one jit, which XLA fuses).
+    Each camera's ids are its chunks' ids offset by the chunk start,
+    ascending; the work is elementwise per row, so ids, counts and sample
+    equal an unchunked pass's. The TSP sample takes rows sample_phase,
+    sample_phase + sample_stride, ... (on a gauss shard: the rows whose
+    global id is a multiple of the stride); chunks start at multiples of
+    the stride. `alive` None: every row. Spans, in the Timer `tm`: a
+    chunk's visibility (`clm.filters.project`) and its read-backs
     (`clm.filters.readback`)."""
     if chunk_rows % sample_stride:
         raise ValueError(f"chunk_rows {chunk_rows} is not a multiple of the sample "
                          f"stride {sample_stride}")
     B, C = viewmats.shape[0], xyz.shape[0]
+    cuda = xyz.device.type == "cuda"
+    cams = camera_table(viewmats, Ks, width, height).to(xyz.device) if cuda else None
     ids = [[] for _ in range(B)]
     samples = []
     for lo in range(0, C, chunk_rows):
         hi = min(lo + chunk_rows, C)
-        means = xyz[lo:hi]
-        live = (torch.ones(hi - lo, dtype=torch.bool, device=xyz.device) if alive is None
-                else alive[lo:hi])
+        live = None if alive is None else alive[lo:hi]
         with tm.span("clm.filters.project"):
-            covar6 = covar_cols(quat[lo:hi], torch.exp(log_scale[lo:hi]))
-            vis = torch.stack([
-                _project_one_cam(means, covar6, viewmats[b], Ks[b], width, height,
-                                 radius_clip, live)[0] > 0
-                for b in range(B)])
+            if cuda:
+                vis = visibility_cuda(xyz[lo:hi], quat[lo:hi], log_scale[lo:hi], live,
+                                      cams, width, height, radius_clip)
+            else:
+                vis = visibility_plain(xyz[lo:hi], quat[lo:hi], log_scale[lo:hi], live,
+                                       viewmats, Ks, width, height, radius_clip)
         with tm.span("clm.filters.readback"):
             rows = (torch.nonzero(vis)[:, 1].to(torch.int32) + lo).split(
                 vis.sum(1).tolist())
