@@ -7,7 +7,8 @@ would bring T <= 1e-4; image = sum w rgb + T_final bg. The backward is the
 reference's hand-derived front-to-back VJP, with no gradient through the
 0.999 clamp.
 
-Binning (ops/tiles.py) gives a tile-major, depth-ordered instance list.
+Binning (ops/tiles.py), in the span `render.bin`, gives a tile-major,
+depth-ordered instance list.
 Per-Gaussian attributes travel as one (N, 9) table [mx, my, ca, cb, cc, op,
 r, g, b]. The forward saves, per pixel, its final T and the index of its last
 composited instance; the backward emits one 9-column gradient row per
@@ -29,6 +30,7 @@ import torch
 from clm_gs_tpu_torch import _build
 from clm_gs_tpu_torch.ops.segreduce import segment_reduce_sorted
 from clm_gs_tpu_torch.ops.tiles import isect_tiles, tight_extents
+from clm_gs_tpu_torch.utils.timer import OFF
 
 TILE_W = 64
 TILE_H = 32
@@ -363,13 +365,16 @@ def rasterize(means2d, conics, colors, opacities, depths, radii, width: int,
 
     means2d (N,2), conics (N,3), colors (N,3), opacities (N,), depths (N,),
     radii (N,) with 0 = culled, background (3,).
-    Returns (image (3, H, W), alpha (H, W), n_isects int).
+    Returns (image (3, H, W), alpha (H, W), n_isects int). The binning
+    (the extents and `isect_tiles`: the depth sort, the fill, the tile sort
+    and the offsets) runs in the span `render.bin`.
     """
     tx_n, ty_n = tile_grid(width, height)
-    with torch.no_grad():
-        ext = tight_extents(conics.detach(), opacities.detach(), radii.detach())
-    isect = isect_tiles(means2d.detach(), radii.detach(), depths.detach(),
-                        (TILE_W, TILE_H), tx_n, ty_n, extents=ext)
+    with OFF.span("render.bin"):
+        with torch.no_grad():
+            ext = tight_extents(conics.detach(), opacities.detach(), radii.detach())
+        isect = isect_tiles(means2d.detach(), radii.detach(), depths.detach(),
+                            (TILE_W, TILE_H), tx_n, ty_n, extents=ext)
     image, alpha = _Rasterize.apply(
         means2d.float().contiguous(), conics.float().contiguous(),
         colors.float().contiguous(), opacities.float().contiguous(),

@@ -2,10 +2,12 @@
 photometric loss (clm_gs_tpu/strategies/base.py:29-160).
 
 Projection -> SH colours -> binning + compositing, in the spans
-`render.project`, `render.sh` and `render.rasterize`. ``RenderOut.means2d`` is
-the screen-space position tensor; a caller that wants its gradient (the
-densification statistics) calls ``retain_grad()`` on it before backward, the
-torch form of the reference's zero-valued ``probe`` input.
+`render.project`, `render.sh` and `render.rasterize` (the binning in
+`render.bin` inside it, opened by `ops/rasterize.py` `rasterize`).
+``RenderOut.means2d`` is the screen-space position tensor; a caller that
+wants its gradient (the densification statistics) calls ``retain_grad()`` on
+it before backward, the torch form of the reference's zero-valued ``probe``
+input.
 """
 
 from __future__ import annotations

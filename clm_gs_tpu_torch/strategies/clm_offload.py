@@ -186,6 +186,10 @@ class ClmContext:
     # every byte the batches copy between the host and the card
     h2d_bytes: int = 0
     d2h_bytes: int = 0
+    # rows the host Adam stepped (worker thread; sums over batches): every
+    # live row once a batch under dense Adam, the seen rows under
+    # --sparse_adam
+    adam_rows: int = 0
     # rows, summed over each batch's cameras on this rank's chain: those
     # each camera sees, and those brought to the card from the host (a
     # chain's first fetch and each advance's arriving rows); retention kept
@@ -599,13 +603,14 @@ def _flush(ctx: ClmContext, grad_buf, ids_dev, ids_host, departed=None):
 
 def _timed_sparse_step(ctx: ClmContext, rows, grad_scale: float, step: int, tm: Timer,
                        batch: int):
-    """The worker thread's host Adam over `rows`, timed for the meter, in
-    the span `clm.host_adam` (its range carries the batch's number in `tm`
-    and the row count)."""
+    """The worker thread's host Adam over `rows`, timed for the meter and
+    counted in `adam_rows`, in the span `clm.host_adam` (its range carries
+    the batch's number in `tm` and the row count)."""
     with tm.span("clm.host_adam", batch, len(rows)):
         t0 = time.perf_counter()
         ctx.adam.sparse_step(ctx.sh_host, ctx.sh_grad_host, rows, grad_scale, step)
         ctx.adam_work_s += time.perf_counter() - t0
+        ctx.adam_rows += len(rows)
 
 
 def _sum_over_data(ctx: ClmContext, ids):
@@ -695,8 +700,9 @@ def train_one_batch(state, opt_state, ctx: ClmContext, cams, gt, sh_degree,
 
     Spans in `timers`: the root `clm.batch`; `clm.filters` (with
     `.project`, `.readback`) and `clm.order` (`_plan`); per camera
-    `clm.fetch_h2d`, `clm.micro` (over `strategies/base.py`'s `render.*`,
-    `render.loss`, `render.backward` and `clm.accumulate`), `clm.advance`
+    `clm.fetch_h2d`, `clm.micro` (over `strategies/base.py`'s `render.*`
+    with `render.bin` inside `render.rasterize`, `render.loss`,
+    `render.backward` and `clm.accumulate`), `clm.advance`
     (with `.transition`, `.fetch`, `.rows`) and `clm.d2h_scatter`; the card
     Adam `clm.adam`; `clm.tail`, from there to the return (the wait for the
     card, the last drain, the host Adam's futures); and `clm.host_adam` on

@@ -19,7 +19,8 @@ edge tests two flags and returns: no range, no allocation, no tensor op,
 no read-back.
 
 `OFF`, a disabled Timer, carries the spans of code that is given no Timer
-(`strategies/base.py`, `no_offload.py`, `offload_common.py`).
+(`strategies/base.py`, `no_offload.py`, `offload_common.py`,
+`ops/rasterize.py`).
 `End2endTimer` accumulates wall-clock time outside the eval and save
 windows.
 """
